@@ -1,0 +1,75 @@
+"""ErasureCoder backend selection.
+
+Backends, byte-identical to each other and to seaweedfs_tpu's:
+
+- "cuda":  the GF(2) bit-matrix kernels of `coder_cuda.py` on a CUDA
+           device; with ``device="cpu"`` the same coder runs the
+           kernels' plain PyTorch versions;
+- "numpy": the table-lookup oracle (host only).
+
+Every backend shares one API: encode / encode_all / reconstruct /
+verify on (shards, n) uint8 rows.  The cuda backend returns tensors on
+its device; `host_array` brings any backend's result to the host.
+"""
+
+from __future__ import annotations
+
+from typing import Protocol
+
+import numpy as np
+import torch
+
+
+class ErasureCoder(Protocol):
+    data_shards: int
+    parity_shards: int
+    total_shards: int
+
+    def encode(self, data): ...
+    def encode_all(self, data): ...
+    def reconstruct(self, shards: dict, wanted: list[int] | None = None
+                    ) -> dict: ...
+    def verify(self, shards) -> bool: ...
+
+
+_BACKENDS = ("cuda", "numpy")
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; raises when it names CUDA and no
+    card is available (never a silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}; expected cuda or cpu")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' to run the kernels' plain PyTorch versions")
+    return dev
+
+
+def host_array(x) -> np.ndarray:
+    """A coder result (tensor on any device, or numpy) as a host array."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def new_coder(data_shards: int = 10, parity_shards: int = 4,
+              matrix_kind: str = "vandermonde", backend: str = "cuda",
+              codec=None, device="cuda") -> ErasureCoder:
+    """Build a coder.  `codec` (a registered codec name or Codec object)
+    overrides the RS shard-count arguments.  The numpy backend runs on
+    the host and takes only ``device="cpu"``."""
+    if backend == "numpy":
+        if resolve_device(device).type != "cpu":
+            raise ValueError("the numpy backend runs on the host; "
+                             "pass device='cpu'")
+        from .coder_numpy import NumpyCoder
+        return NumpyCoder(data_shards, parity_shards, matrix_kind, codec)
+    if backend == "cuda":
+        from .coder_cuda import CudaCoder
+        return CudaCoder(data_shards, parity_shards, matrix_kind,
+                         codec=codec, device=device)
+    raise ValueError(f"unknown erasure backend {backend!r}; "
+                     f"expected one of {_BACKENDS}")
