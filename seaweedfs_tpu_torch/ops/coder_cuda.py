@@ -14,14 +14,22 @@ They replace `seaweedfs_tpu/ops/coder_pallas.py` apply_bitmatrix_pallas
 and apply_bitmatrix_crc_pallas.  Each wrapper launches its kernel for a
 tensor on a CUDA device (or raises) and runs the kernel's plain PyTorch
 version (`apply_bitmatrix_torch`, `apply_bitmatrix_crc_torch`) for a
-tensor on the CPU, and counts its launches in a `launches` attribute.
+tensor on the CPU, and counts its launches in a `launches` attribute
+(and per instantiation in `variant_launches`).
 
 Both kernels take the bit-matrix packed on the host (`pack_bitmatrix`):
 one 8-bit mask per (output bit row, input row) of the plane-major
 matrix — row `s*r + i` is bit s of output shard i, column `s*k + j` bit
-s of input shard j (`plane_major`).  K2 takes the CRC constants of
-`crc_fold.CrcFoldTables` packed into 32-bit words (`pack_crc_tables`).
-The plain versions take the same packed inputs and unpack them.
+s of input shard j (`plane_major`).  The wrappers take the masks as a
+host (CPU) tensor: a shape with an instantiation of its own
+(`K1_SPECIALISED`, `K2_SPECIALISED`) gets them as launch parameters
+(`mask_words`), so no call copies them off the card or synchronises;
+every other shape runs a generic instantiation that reads an
+asynchronous device copy.  The plain versions take the masks on any
+device.  K2's plain version takes the CRC constants of
+`crc_fold.CrcFoldTables` packed into 32-bit words (`pack_crc_tables`);
+the kernel reads the byte-table form of the same function
+(`pack_crc_kernel_tables`), built once per device.
 """
 
 from __future__ import annotations
@@ -43,6 +51,26 @@ BLOCK_N = 4096
 # Column group the plain versions work through at a time, which bounds
 # their float32 intermediates to a few times the input.
 _PLAIN_COLS = 1 << 18
+
+# Shapes (in_rows, out_rows) with an instantiation of their own: fully
+# unrolled, masks as launch parameters.  K1: encode/rebuild/verify
+# (10 -> 4) and one missing shard per degraded-read interval (10 -> 1).
+# Index i of *_VARIANTS names the instantiation the C entry point's
+# `variant` argument i launches; every other accepted shape takes a
+# generic one.
+K1_SPECIALISED = ((10, 4), (10, 1))
+K1_VARIANTS = ("10->4", "10->1", "generic<=16", "generic<=32")
+K2_SPECIALISED = ((10, 4),)
+K2_VARIANTS = ("10->4", "generic<=16")
+
+# K2's CRC geometry (csrc/rs_bitmatrix_crc.cu): a row of a tile is
+# CRC_RUNS runs, each CRC_CHAINS interleaved chains; CRC_SHIFT_LENGTHS are
+# the zero-byte shifts that join chains (the first) and pairs of runs
+# (the rest, level by level).
+CRC_RUNS = 16
+CRC_CHAINS = 4
+CRC_SHIFT_LENGTHS = (BLOCK_N // CRC_RUNS // CRC_CHAINS,) + tuple(
+    (BLOCK_N // CRC_RUNS) << k for k in range(4))
 
 
 def plane_major(bmat: np.ndarray, rows: int, cols: int) -> np.ndarray:
@@ -98,6 +126,45 @@ def pack_crc_tables(t: crc_fold.CrcFoldTables
     plane_cols = _pack_words(t.planes.transpose(0, 2, 1)).reshape(-1)
     pos_cols = _pack_words(t.posmats.transpose(0, 2, 1)).reshape(-1)
     return w0, plane_cols, pos_cols
+
+
+def pack_crc_kernel_tables() -> tuple[np.ndarray, np.ndarray]:
+    """K2's form of the CRC constants, int32 words: the byte table
+    (256,) and the shift tables (len(CRC_SHIFT_LENGTHS) * 4 * 256,), one
+    byte-sliced `crc_fold.shift_table` per length in CRC_SHIFT_LENGTHS
+    order.  The position columns are pack_crc_tables' third array."""
+    byte_table = crc_fold.byte_table()
+    shifts = np.stack([crc_fold.shift_table(m) for m in CRC_SHIFT_LENGTHS])
+    return byte_table.view(np.int32), shifts.reshape(-1).view(np.int32)
+
+
+def mask_words(masks: torch.Tensor) -> np.ndarray:
+    """(8r, k) uint8 host masks -> (8r * k,) uint32 mask words, the
+    launch parameter of a specialised kernel (csrc/rs_bitmatrix.cuh).
+    Word (s*r + i)*k + j, for s < 4, is the byte (m[s] & 0x0F) |
+    (m[s+4] & 0xF0) and, for s >= 4, (m[s-4] >> 4) | ((m[s] << 4) &
+    0xF0), with m[s] = masks[s*r + i, j]; each replicated into the four
+    byte lanes.  This folds the first level of the kernels' parity
+    butterfly into the masks."""
+    m = np.ascontiguousarray(masks.numpy(), dtype=np.uint32)
+    lo, hi = np.split(m, 2)            # planes s < 4 and s + 4
+    a1 = (lo & 0x0F) | (hi & 0xF0)
+    a2 = (lo >> 4) | ((hi << 4) & 0xF0)
+    return np.concatenate([a1, a2]).reshape(-1) * np.uint32(0x01010101)
+
+
+def k1_variant(in_rows: int, out_rows: int) -> int:
+    """Index into K1_VARIANTS of the instantiation for this shape."""
+    if (in_rows, out_rows) in K1_SPECIALISED:
+        return K1_SPECIALISED.index((in_rows, out_rows))
+    return len(K1_SPECIALISED) + (in_rows > 16)
+
+
+def k2_variant(in_rows: int, out_rows: int) -> int:
+    """Index into K2_VARIANTS of the instantiation for this shape."""
+    if (in_rows, out_rows) in K2_SPECIALISED:
+        return K2_SPECIALISED.index((in_rows, out_rows))
+    return len(K2_SPECIALISED)
 
 
 def _unpack_words(words: torch.Tensor) -> torch.Tensor:
@@ -196,14 +263,15 @@ def apply_bitmatrix_crc_torch(masks: torch.Tensor, shards: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _ARGTYPES = {
-    "rs_bitmatrix": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_void_p],
-    "rs_bitmatrix_crc": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_void_p],
+    "rs_bitmatrix": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                     ctypes.c_void_p],
+    "rs_bitmatrix_crc": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -214,6 +282,13 @@ def _kernel(name: str):
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _crc_kernel_tables(device: torch.device
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in pack_crc_kernel_tables())
 
 
 def _check_launch(name: str, rc: int) -> None:
@@ -240,30 +315,50 @@ def _check_mix(masks: torch.Tensor, shards: torch.Tensor) -> None:
                          f"{tuple(shards.shape)}")
 
 
+def _kernel_masks(masks: torch.Tensor, specialised: bool, device
+                  ) -> tuple[np.ndarray | None, torch.Tensor | None]:
+    """(host mask words, device masks): the words for a specialised
+    instantiation, else an asynchronous device copy for a generic one."""
+    if masks.device.type != "cpu":
+        raise ValueError("a kernel takes the host copy of its masks, "
+                         f"got masks on {masks.device}")
+    masks = masks.contiguous()
+    if specialised:
+        return mask_words(masks), None
+    return None, masks.to(device, non_blocking=True)
+
+
 def apply_bitmatrix(masks: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
     """(8r, k) packed masks x (k, n) uint8 shards -> (r, n) uint8.
 
-    A CUDA tensor launches K1 (n a multiple of 16, k and r <= 32); a
-    CPU tensor runs apply_bitmatrix_torch."""
+    A CUDA tensor launches K1 (n a multiple of 16, k and r <= 32, masks
+    on the host) in the instantiation `k1_variant` picks; a CPU tensor
+    runs apply_bitmatrix_torch."""
     _check_mix(masks, shards)
     if shards.device.type == "cpu":
         return apply_bitmatrix_torch(masks, shards)
-    _check_cuda(shards.device, masks=masks, shards=shards)
+    _check_cuda(shards.device, shards=shards)
     out_rows, (in_rows, n) = masks.shape[0] // 8, shards.shape
     if out_rows > 32 or in_rows > 32 or n % 16:
         raise ValueError(f"K1 takes <= 32 rows in and out and n % 16 == 0, "
                          f"got {out_rows} x {in_rows}, n={n}")
+    variant = k1_variant(in_rows, out_rows)
+    words, dev_masks = _kernel_masks(masks, variant < len(K1_SPECIALISED),
+                                     shards.device)
     out = torch.empty((out_rows, n), dtype=torch.uint8, device=shards.device)
     rc = _kernel("rs_bitmatrix")(
-        masks.data_ptr(), out_rows, in_rows, shards.data_ptr(),
-        out.data_ptr(), n, shards.device.index,
+        variant, None if words is None else words.ctypes.data,
+        None if dev_masks is None else dev_masks.data_ptr(), out_rows,
+        in_rows, shards.data_ptr(), out.data_ptr(), n, shards.device.index,
         torch.cuda.current_stream(shards.device).cuda_stream)
     _check_launch("rs_bitmatrix", rc)
     apply_bitmatrix.launches += 1
+    apply_bitmatrix.variant_launches[K1_VARIANTS[variant]] += 1
     return out
 
 
 apply_bitmatrix.launches = 0
+apply_bitmatrix.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
 
 
 def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
@@ -275,14 +370,15 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
     of seaweedfs_tpu's kernel; take `.view(np.uint32)` on the host).
 
     A CUDA tensor launches K2 (n a multiple of 4096, k and r <= 16,
-    input starting on an `.ecc` block boundary); a CPU tensor runs
-    apply_bitmatrix_crc_torch."""
+    masks on the host, input starting on an `.ecc` block boundary) in
+    the instantiation `k2_variant` picks; it reads pos_cols and the
+    device's `pack_crc_kernel_tables`, and w0 and plane_cols only set
+    the tile.  A CPU tensor runs apply_bitmatrix_crc_torch."""
     _check_mix(masks, shards)
     if shards.device.type == "cpu":
         return apply_bitmatrix_crc_torch(masks, shards, w0, plane_cols,
                                          pos_cols)
-    _check_cuda(shards.device, masks=masks, shards=shards, w0=w0,
-                plane_cols=plane_cols, pos_cols=pos_cols)
+    _check_cuda(shards.device, shards=shards, pos_cols=pos_cols)
     if w0.shape[0] != BLOCK_N or plane_cols.shape[0] != 8 * 32 \
             or pos_cols.shape[0] % 32:
         raise ValueError("crc tables do not fit the kernel's 4096-byte tile")
@@ -290,22 +386,29 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
     if out_rows > 16 or in_rows > 16 or n % BLOCK_N:
         raise ValueError(f"K2 takes <= 16 rows in and out and n % {BLOCK_N} "
                          f"== 0, got {out_rows} x {in_rows}, n={n}")
+    variant = k2_variant(in_rows, out_rows)
+    words, dev_masks = _kernel_masks(masks, variant < len(K2_SPECIALISED),
+                                     shards.device)
+    byte_table, shifts = _crc_kernel_tables(shards.device)
     parity = torch.empty((out_rows, n), dtype=torch.uint8,
                          device=shards.device)
     partials = torch.empty((in_rows + out_rows, n // BLOCK_N),
                            dtype=torch.int32, device=shards.device)
     rc = _kernel("rs_bitmatrix_crc")(
-        masks.data_ptr(), out_rows, in_rows, shards.data_ptr(),
-        parity.data_ptr(), n, w0.data_ptr(), plane_cols.data_ptr(),
-        pos_cols.data_ptr(), pos_cols.shape[0] // 32, partials.data_ptr(),
-        shards.device.index,
+        variant, None if words is None else words.ctypes.data,
+        None if dev_masks is None else dev_masks.data_ptr(), out_rows,
+        in_rows, shards.data_ptr(), parity.data_ptr(), n,
+        byte_table.data_ptr(), shifts.data_ptr(), pos_cols.data_ptr(),
+        pos_cols.shape[0] // 32, partials.data_ptr(), shards.device.index,
         torch.cuda.current_stream(shards.device).cuda_stream)
     _check_launch("rs_bitmatrix_crc", rc)
     apply_bitmatrix_crc.launches += 1
+    apply_bitmatrix_crc.variant_launches[K2_VARIANTS[variant]] += 1
     return parity, partials
 
 
 apply_bitmatrix_crc.launches = 0
+apply_bitmatrix_crc.variant_launches = dict.fromkeys(K2_VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +442,9 @@ class CudaCoder:
         self.block_n = BLOCK_N
         pm = plane_major(self.codec.parity_bitmatrix(), self.parity_shards,
                          self.data_shards)
-        self._parity_masks = self._upload(pack_bitmatrix(pm))
+        # Masks stay on the host: the kernels take them as launch
+        # parameters (and the plain versions on the CPU as they are).
+        self._parity_masks = torch.from_numpy(pack_bitmatrix(pm))
         self._crc_consts = None
         self._decode_cache: dict = {}
         self._cache_lock = threading.Lock()
@@ -415,15 +520,15 @@ class CudaCoder:
     def _decode_masks(self, present: tuple[int, ...],
                       wanted: tuple[int, ...]
                       ) -> tuple[torch.Tensor, tuple[int, ...]]:
-        """Packed decode masks for one survivor set, cached on the
-        device so a degraded read pays no matrix upload."""
+        """Packed host decode masks for one survivor set, cached so a
+        degraded read pays no matrix solve."""
         key = (present, wanted)
         with self._cache_lock:
             hit = self._decode_cache.get(key)
         if hit is None:
             bmat, used = self.codec.decode_bitmatrix(present, wanted)
             pm = plane_major(np.asarray(bmat), len(wanted), len(used))
-            hit = (self._upload(pack_bitmatrix(pm)), used)
+            hit = (torch.from_numpy(pack_bitmatrix(pm)), used)
             with self._cache_lock:
                 if len(self._decode_cache) >= _DECODE_CACHE_CAP:
                     self._decode_cache.clear()

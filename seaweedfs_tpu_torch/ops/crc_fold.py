@@ -185,6 +185,27 @@ class CrcFoldTables:
         self.block_const = crc32c(b"\x00" * block) & _MASK
 
 
+def byte_table() -> np.ndarray:
+    """(256,) uint32: entry b = E(b) = step(0, [b]), the reflected CRC32-C
+    byte table.  One byte of a message advances the raw register as
+    ``c = T[(c ^ b) & 0xff] ^ (c >> 8)`` (K2's CRC step)."""
+    return np.array([_step(0, bytes([b])) for b in range(256)],
+                    dtype=np.uint32)
+
+
+def shift_table(m: int) -> np.ndarray:
+    """(4, 256) uint32 byte-sliced table of Z^m, the raw register advanced
+    over m zero bytes: Z^m(x) = XOR_s table[s, (x >> 8s) & 0xff].  It joins
+    two runs by linearity: step(0, AB) = Z^len(B)(step(0, A)) ^ step(0, B)."""
+    zeros = bytes(m)
+    images = np.array([_step(1 << i, zeros) for i in range(32)],
+                      dtype=np.uint32).reshape(4, 8)
+    bits = (np.arange(256)[:, None] >> np.arange(8)) & 1      # (256, 8)
+    picked = np.where(bits[None].astype(bool), images[:, None, :],
+                      np.uint32(0))                             # (4, 256, 8)
+    return np.bitwise_xor.reduce(picked, axis=2).astype(np.uint32)
+
+
 _TABLE_CACHE: dict = {}
 _TABLE_LOCK = threading.Lock()
 

@@ -96,3 +96,37 @@ def ptxas_report(name: str) -> str:
     """The -Xptxas -v output kept from the build of csrc/<name>.cu."""
     with open(library_path(name) + ".log") as f:
         return f.read()
+
+
+def sass_counts(name: str, library: str | None = None
+                ) -> dict[str, dict[str, int]]:
+    """Static SASS instruction counts of each kernel in the library of
+    csrc/<name>.cu (or in `library`), from `cuobjdump -sass`: {kernel:
+    {"total": count, opcode: count, ...}}, opcodes without their
+    modifiers, NOPs left out, most frequent first.  Empty when the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", library or library_path(name)],
+                         capture_output=True, text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    current = None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            current = counts.setdefault(line.split(":", 1)[1].strip(), {})
+            continue
+        if current is None or not line.startswith("/*") or "*/" not in line:
+            continue
+        tokens = line.split("*/", 1)[1].split()
+        if tokens and tokens[0].startswith("@"):  # predicate guard
+            tokens = tokens[1:]
+        if not tokens or tokens[0].startswith("/*"):
+            continue
+        op = tokens[0].rstrip(";").split(".")[0]
+        if op != "NOP":
+            current[op] = current.get(op, 0) + 1
+    return {fn: {"total": sum(c.values()),
+                 **dict(sorted(c.items(), key=lambda kv: -kv[1]))}
+            for fn, c in counts.items()}

@@ -82,7 +82,8 @@ def test_port_runs_with_jax_and_reference_blocked(tmp_path):
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                           "kernel_variants.py")]
     for root, _dirs, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
