@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--dat-mib 1024]
+    python3 chip_smoke.py [--seed 0] [--dat-mib 1024] [--batch-div 1]
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -19,7 +19,11 @@ Phases; any failure raises and the script exits non-zero:
              degraded read's matrix at a ragged 1 MiB, K1 generic<=16
              (RS(16,4) parity) and generic<=32 (random 20 -> 5); K2 10->4
              at (10, 4 MiB) and generic<=16 (random 12 -> 3), each with
-             its folded block CRCs against the host crc32c;
+             its folded block CRCs against the host crc32c; then the
+             volume axis: K1 and K2 10->4 at V = 3 with 1027 tiles per
+             volume (not a multiple of 256), the LRC local repair 5->1
+             (K1 at 1 MiB, K2 at a whole 26 MiB LRC shard), and a
+             rebuild-sized (2, 10, 26 MiB) decode;
 4. main    — `weed shell ec.encode` on a volume at its size limit, cut
              from 30000 MB to --dat-mib: write a seeded .dat/.idx,
              .ecx, write_ec_files (fused CRC, K2), delete shards
@@ -30,17 +34,37 @@ Phases; any failure raises and the script exits non-zero:
              both kernels launched;
 5. timings — each kernel, its plain version and a torch.matmul yardstick
              at the main path's shapes: K1 at (10 -> 4, 4 MiB) and
-             (10 -> 1, 1 MiB), K2 at (10 -> 4, 4 MiB).  CUDA events
-             around 200 launches that the host has all issued before the
-             card reaches the start event (a torch.cuda._sleep fills the
-             queue), inputs rotated through more than the 50 MB L2; the
-             host microseconds per wrapper call beside each.
+             (10 -> 1, 1 MiB), K2 at (10 -> 4, 4 MiB); at the batched
+             path's (4, 10, 4 MiB) encode step and its largest rebuild
+             step, and at LRC's 5 -> 1 (K1 1 MiB, K2 one LRC shard).
+             CUDA events around many launches that the host has all
+             issued before the card reaches the start event (a
+             torch.cuda._sleep fills the queue), inputs rotated through
+             more than the 50 MB L2; the host microseconds per wrapper
+             call beside each.
+6. batch   — the batched multi-volume path (parallel/): four RS volumes
+             of 512/384/256/160 MiB (/ --batch-div), `ec.encode -batch`
+             at -fullPercent of one collection, cut from 30000 MB, go
+             through batch_encode_files in one group (max_batch_bytes
+             2 GiB: steps of (4, 10, 4 MiB) shrinking as volumes end),
+             once with the CRC fused (K2) and once on the host (K1), and
+             must equal write_ec_files's files (sha256); shards 1/3/9/12
+             of all four are deleted and batch_rebuild_files rebuilds
+             them in whole-shard steps (2, 10, ~52 MiB) and (2, 10,
+             ~26 MiB); one 256 MiB LRC volume is batch-encoded, loses
+             shard 3 and is rebuilt by the 5-read local repair, then
+             loses shards 3 and 7 for 300 seeded degraded reads.  Each
+             of these paths runs with the launch counts reset just
+             before it and read just after, and must have launched its
+             instantiations (with a volume axis where it stacks).
+
+Phase 6 runs before phase 5, whose timings include its shapes.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
 
-Prints a {"main_path": ...} line, nvidia-smi's line, a {"kernels": [...]}
-line, and last {"ok": true, "device": {...}}.
+Prints a {"main_path": ...} line, a {"batch_path": ...} line, nvidia-smi's
+line, a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,6 +98,16 @@ KERNEL_N = 4 * MIB  # DEFAULT_CHUNK: one coder call on the main path
 REBUILD_LOST = (1, 3, 9, 12)
 READ_LOST = (0, 4, 8, 13)
 READS = 300
+# The batched path: full volumes of one collection (MiB), its group
+# bound, and the LRC volume with its losses.
+BATCH_MIB = (512, 384, 256, 160)
+BATCH_BYTES = 2 << 30
+LRC_MIB = 256
+LRC_REBUILD_LOST = (3,)
+LRC_READ_LOST = (3, 7)
+EC_EXTS = tuple(f".ec{i:02d}" for i in range(14)) + (".ecx", ".vif", ".ecc")
+PHASE6_STEPS = ("rs_encode", "rs_encode_unfused", "rs_rebuild", "lrc_encode",
+                "lrc_rebuild", "lrc_reads")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -176,7 +210,8 @@ def _k1_case(torch, dev, masks, x, name):
 
 def _k2_case(torch, dev, masks, x, consts, name):
     """K2 on the card against its plain version, and its partials folded
-    into block CRCs against the host crc32c of every row."""
+    into block CRCs against the host crc32c of every row (of every
+    volume, for a (V, rows, n) input)."""
     from seaweedfs_tpu_torch.core.crc import crc32c
     from seaweedfs_tpu_torch.ops import crc_fold
     from seaweedfs_tpu_torch.ops.coder_cuda import (apply_bitmatrix_crc,
@@ -187,16 +222,95 @@ def _k2_case(torch, dev, masks, x, consts, name):
     err = max(max_abs_err(torch, par, par_p),
               max_abs_err(torch, parts, parts_p))
     check(err == 0, f"K2 {name} differs from its plain version ({err})")
-    n = x.shape[1]
-    rows = torch.cat([x, par]).cpu().numpy()
-    parts_np = parts.cpu().numpy().view(np.uint32)
-    for i in range(rows.shape[0]):
-        folded = crc_fold.block_crcs_from_partials(parts_np[i], n, 4096)
-        host = [crc32c(rows[i, b * MIB:(b + 1) * MIB].tobytes())
-                for b in range(n // MIB)]
-        check(folded == host, f"K2 {name}: block CRCs of row {i} differ "
-              "from crc32c")
+    n = x.shape[-1]
+    nb = n // MIB
+    rows = torch.cat([x, par], dim=-2).cpu().numpy().reshape(
+        -1, x.shape[-2] + par.shape[-2], n)
+    parts_np = parts.cpu().numpy().view(np.uint32).reshape(
+        rows.shape[0], rows.shape[1], -1)
+    for v in range(rows.shape[0]):
+        for i in range(rows.shape[1]):
+            folded = crc_fold.block_crcs_from_partials(parts_np[v, i],
+                                                       nb * MIB, 4096)
+            host = [crc32c(rows[v, i, b * MIB:(b + 1) * MIB].tobytes())
+                    for b in range(nb)]
+            check(folded == host, f"K2 {name}: block CRCs of volume {v} "
+                  f"row {i} differ from crc32c")
     return par, err
+
+
+def _volume_cases(torch, dev, rng, parity_masks, consts) -> tuple[int, int]:
+    """The batched path's shapes on the card against the plain versions:
+    K1 and K2 10->4 at V = 3 with 1027 tiles per volume (a flat tile
+    index would give wrong CRCs for volumes 1 and 2), LRC's local repair
+    5 -> 1 (K1 at 1 MiB, K2 at a whole 26 MiB LRC shard), and K1 and K2
+    at a (2, 10, 26 MiB) rebuild decode.  Returns (K1 err, K2 err)."""
+    from seaweedfs_tpu_torch.codecs import get_codec
+    from seaweedfs_tpu_torch.ops.coder_cuda import (apply_bitmatrix,
+                                                    apply_bitmatrix_crc,
+                                                    pack_bitmatrix,
+                                                    plane_major)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    host_masks = lambda b, rows, cols: torch.from_numpy(  # noqa: E731
+        pack_bitmatrix(plane_major(np.asarray(b), rows, cols)))
+    e1, e2 = [], []
+
+    n3 = 4 * MIB + 3 * 4096
+    x3 = up(rng.integers(0, 256, (3, 10, n3), dtype=np.uint8))
+    got, err = _k1_case(torch, dev, parity_masks, x3, "10->4 V=3")
+    e1.append(err)
+    par, err = _k2_case(torch, dev, parity_masks, x3, consts, "10->4 V=3")
+    e2.append(err)
+    check(torch.equal(par, got), "K2 parity differs from K1 parity at V=3")
+    single = apply_bitmatrix_crc(parity_masks, x3[2], *consts)[1]
+    check(torch.equal(apply_bitmatrix_crc(parity_masks, x3, *consts)[1][2],
+                      single), "K2 partials of volume 2 differ from its "
+          "single-volume launch")
+    log(f"K1, K2 10->4 at (3, 10, {n3}) (1027 tiles per volume): identical "
+        "to the plain versions; every volume's block CRCs equal crc32c")
+
+    lrc = get_codec("lrc")
+    lrc_par = host_masks(lrc.parity_bitmatrix(), 4, 10)
+    local = tuple(s for s in lrc.repair_plan(
+        tuple(s for s in range(14) if s != 3), [3])[0].reads)
+    bmat, used = lrc.decode_bitmatrix(local, (3,))
+    check(len(used) == 5, f"LRC local repair reads {used}")
+    rd5 = host_masks(bmat, 1, 5)
+    for n, label in ((MIB, "K1"), (26 * MIB, "K2")):
+        data = up(rng.integers(0, 256, (10, n), dtype=np.uint8))
+        full = torch.cat([data, apply_bitmatrix(lrc_par, data)])
+        x5 = full[list(used)].contiguous()
+        if label == "K1":
+            rec, err = _k1_case(torch, dev, rd5, x5, "generic 5->1")
+            e1.append(err)
+        else:
+            rec, err = _k2_case(torch, dev, rd5, x5, consts, "generic 5->1")
+            e2.append(err)
+        check(torch.equal(rec[0], full[3]), f"{label} 5->1 did not restore "
+              "LRC shard 3")
+        del data, full, x5
+    log(f"LRC local repair {used} -> 3: K1 at 1 MiB and K2 at 26 MiB "
+        "identical to the plain versions and to the erased shard")
+
+    rs = get_codec("rs")
+    data = up(rng.integers(0, 256, (2, 10, 26 * MIB), dtype=np.uint8))
+    full = torch.cat([data, apply_bitmatrix(parity_masks, data)], dim=1)
+    present = tuple(s for s in range(14) if s not in REBUILD_LOST)
+    bmat, used = rs.decode_bitmatrix(present, REBUILD_LOST)
+    dec = host_masks(bmat, len(REBUILD_LOST), len(used))
+    stacked = full[:, list(used)].contiguous()
+    want = full[:, list(REBUILD_LOST)]
+    rec, err = _k1_case(torch, dev, dec, stacked, "10->4 decode V=2")
+    e1.append(err)
+    check(torch.equal(rec, want), "K1 (2, 10, 26 MiB) decode did not "
+          "restore the erased shards")
+    rec, err = _k2_case(torch, dev, dec, stacked, consts, "10->4 decode V=2")
+    e2.append(err)
+    check(torch.equal(rec, want), "K2 (2, 10, 26 MiB) decode did not "
+          "restore the erased shards")
+    log("K1, K2 10->4 decode at (2, 10, 26 MiB): identical to the plain "
+        "versions and to the erased shards")
+    return max(e1), max(e2)
 
 
 def phase_kernels(torch, dev, seed: int) -> dict:
@@ -282,14 +396,43 @@ def phase_kernels(torch, dev, seed: int) -> dict:
     log("K2 generic<=16 (random 12 -> 3, 2 MiB): identical to the plain "
         "version; folded block CRCs equal crc32c")
 
+    for fn in (apply_bitmatrix, apply_bitmatrix_crc):
+        fn.volume_launches = 0
+    v1, v2 = _volume_cases(torch, dev, rng, parity_masks, consts)
+    errs.append(v1)
+    err_k2 = max(err_k2, v2)
+
     for fn, names in ((apply_bitmatrix, K1_VARIANTS),
                       (apply_bitmatrix_crc, K2_VARIANTS)):
         for name in names:
             check(fn.variant_launches[name] > 0,
                   f"instantiation {name} of {fn.__name__} not launched")
+        check(fn.volume_launches > 0,
+              f"{fn.__name__} never launched with a volume axis")
     return {"k1_err": max(errs), "k2_err": err_k2,
             "parity_masks": parity_masks, "decode_masks": decode_masks,
             "read_masks": read_masks, "crc_consts": consts}
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counts to 0."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import (apply_bitmatrix,
+                                                    apply_bitmatrix_crc)
+    for fn in (apply_bitmatrix, apply_bitmatrix_crc):
+        fn.launches = 0
+        fn.volume_launches = 0
+        fn.variant_launches.update(dict.fromkeys(fn.variant_launches, 0))
+
+
+def read_counts() -> dict:
+    """Launch counts of both kernels since the last reset_counts."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import (apply_bitmatrix,
+                                                    apply_bitmatrix_crc)
+    return {fn_name: {"launches": fn.launches,
+                      "volume_axis_launches": fn.volume_launches,
+                      "by_instantiation": dict(fn.variant_launches)}
+            for fn_name, fn in (("rs_bitmatrix", apply_bitmatrix),
+                                ("rs_bitmatrix_crc", apply_bitmatrix_crc))}
 
 
 def phase_main_path(torch, dev, args) -> dict:
@@ -315,9 +458,7 @@ def phase_main_path(torch, dev, args) -> dict:
         log(f"wrote {len(payloads)} needles, .dat {dat_size} bytes "
             f"in {time.perf_counter() - t0:.1f} s")
 
-        for fn in (apply_bitmatrix, apply_bitmatrix_crc):
-            fn.launches = 0
-            fn.variant_launches.update(dict.fromkeys(fn.variant_launches, 0))
+        reset_counts()
 
         t0 = time.perf_counter()
         write_ec_files(base, device=dev)
@@ -396,6 +537,330 @@ def phase_main_path(torch, dev, args) -> dict:
     }
 
 
+def _same_files(a: str, b: str, what: str) -> None:
+    """Every EC file of base a equals base b's (sha256)."""
+    for ext in EC_EXTS:
+        check(os.path.exists(a + ext) == os.path.exists(b + ext),
+              f"{what}: {ext} exists in one tree only")
+        if os.path.exists(a + ext):
+            check(sha256_file(a + ext) == sha256_file(b + ext),
+                  f"{what}: {ext} differs from write_ec_files's")
+
+
+def _reference_encode(base: str, ref: str, dev, codec: str) -> None:
+    """write_ec_files of the port on hard links of base's .dat/.idx."""
+    from seaweedfs_tpu_torch.ec.encoder import (write_ec_files,
+                                                write_sorted_file_from_idx)
+    for ext in (".dat", ".idx"):
+        os.link(base + ext, ref + ext)
+    write_sorted_file_from_idx(ref)
+    write_ec_files(ref, codec=codec, device=dev)
+
+
+def _check_rebuilt(base: str, ref: str, lost, what: str) -> None:
+    from seaweedfs_tpu_torch.ec import to_ext
+    from seaweedfs_tpu_torch.ec.integrity import (ShardChecksums,
+                                                  file_block_crcs)
+    ecc = ShardChecksums.load(base)
+    for sid in lost:
+        check(sha256_file(base + to_ext(sid)) == sha256_file(ref + to_ext(sid)),
+              f"{what}: rebuilt shard {sid} differs from the original")
+        check(ecc.get(sid) == file_block_crcs(base + to_ext(sid)),
+              f"{what}: .ecc of rebuilt shard {sid} differs from its bytes")
+
+
+def phase_batch(torch, dev, args) -> dict:
+    """The batched multi-volume path at full width: RS encode of
+    four volumes in one group and their whole-shard rebuild, an LRC
+    volume's encode, 5-read local rebuild and degraded reads.  Each
+    path is driven with the launch counts reset just before it and read
+    just after; every file is held against write_ec_files's."""
+    from seaweedfs_tpu_torch.codecs import get_codec
+    from seaweedfs_tpu_torch.ec import to_ext
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.ops.coder_cuda import apply_bitmatrix
+    from seaweedfs_tpu_torch.parallel.cluster_encode import (
+        batch_encode_files, pipeline_depth)
+    from seaweedfs_tpu_torch.parallel.cluster_rebuild import (
+        batch_rebuild_files, plan_repair_reads)
+    from seaweedfs_tpu_torch.parallel.mesh import make_mesh
+    from seaweedfs_tpu_torch.parallel.stream_pipeline import PipelineRecorder
+
+    work = os.path.join(REPO, "_smoke_work", "batch")
+    shutil.rmtree(work, ignore_errors=True)
+    for sub in ("rs", "rs_ref", "lrc", "lrc_ref"):
+        os.makedirs(os.path.join(work, sub))
+    mesh = make_mesh()
+    out: dict = {"mesh": mesh.shape, "max_batch_bytes": BATCH_BYTES}
+    try:
+        mibs = [m // args.batch_div for m in BATCH_MIB]
+        bases = [os.path.join(work, "rs", str(i + 1)) for i in range(len(mibs))]
+        refs = [os.path.join(work, "rs_ref", str(i + 1)) for i in range(len(mibs))]
+        t0 = time.perf_counter()
+        for i, (base, mib) in enumerate(zip(bases, mibs)):
+            write_volume(base, mib * MIB, args.seed + 10 + i)
+        dat_bytes = sum(os.path.getsize(b + ".dat") for b in bases)
+        log(f"wrote RS volumes {mibs} MiB in {time.perf_counter() - t0:.1f} s")
+
+        def timed(name, fn):
+            """Run one path with fresh launch counts and peak device
+            memory; the steps in flight must stay within
+            max_batch_bytes x (depth + 1)."""
+            rec = PipelineRecorder(maxlen=1 << 16)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_bytes = torch.cuda.memory_allocated(dev)
+            t = time.perf_counter()
+            result = fn(rec)
+            wall = time.perf_counter() - t
+            peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+            out[name] = {"wall_s": wall, "launches": read_counts(),
+                         "stage_seconds": rec.stage_seconds(),
+                         "steps": len({i for _s, i, _a, _b in rec.spans()}),
+                         "peak_device_bytes": peak}
+            out[name]["stage_sum_over_wall"] = \
+                sum(out[name]["stage_seconds"].values()) / wall
+            check(peak <= BATCH_BYTES * (pipeline_depth() + 1),
+                  f"{name}: {peak} bytes on the card at once")
+            return result
+
+        timed("rs_encode", lambda rec: batch_encode_files(
+            bases, mesh, max_batch_bytes=BATCH_BYTES, codec="rs",
+            recorder=rec))
+        out["rs_encode"]["gb_s"] = dat_bytes / out["rs_encode"]["wall_s"] / 1e9
+        out["rs_encode"]["dat_bytes"] = dat_bytes
+        for base, ref in zip(bases, refs):
+            _reference_encode(base, ref, dev, "rs")
+            _same_files(base, ref, f"RS volume {os.path.basename(base)}")
+        log(f"batched RS encode of {len(bases)} volumes "
+            f"{out['rs_encode']['wall_s']:.3f} s "
+            f"({out['rs_encode']['gb_s']:.3f} GB/s): every shard, .ecx, "
+            ".vif and .ecc equals write_ec_files's")
+
+        # The same group with the CRC left to the host: K1 with a volume
+        # axis, then the .ecc from the written shards.
+        unfused = [os.path.join(work, "rs_k1", str(i + 1))
+                   for i in range(len(bases))]
+        os.makedirs(os.path.join(work, "rs_k1"))
+        for base, copy in zip(bases, unfused):
+            for ext in (".dat", ".idx"):
+                os.link(base + ext, copy + ext)
+        os.environ["SEAWEEDFS_TPU_EC_FUSED_CRC"] = "0"
+        try:
+            timed("rs_encode_unfused", lambda rec: batch_encode_files(
+                unfused, mesh, max_batch_bytes=BATCH_BYTES, codec="rs",
+                recorder=rec))
+        finally:
+            del os.environ["SEAWEEDFS_TPU_EC_FUSED_CRC"]
+        for copy, ref in zip(unfused, refs):
+            _same_files(copy, ref, f"RS volume {os.path.basename(copy)}, "
+                        "CRC on the host")
+        shutil.rmtree(os.path.join(work, "rs_k1"))
+        log(f"batched RS encode with the CRC on the host (K1) "
+            f"{out['rs_encode_unfused']['wall_s']:.3f} s: identical")
+
+        for base in bases:
+            for sid in REBUILD_LOST:
+                os.remove(base + to_ext(sid))
+        msgs = timed("rs_rebuild", lambda rec: batch_rebuild_files(
+            bases, mesh, max_batch_bytes=BATCH_BYTES, recorder=rec))
+        out["rs_rebuild"]["gb_s"] = \
+            dat_bytes / out["rs_rebuild"]["wall_s"] / 1e9
+        check(len(msgs) == len(bases) and all("rebuilt" in m for m in msgs),
+              f"RS batched rebuild: {msgs}")
+        for base, ref in zip(bases, refs):
+            _check_rebuilt(base, ref, REBUILD_LOST,
+                           f"RS volume {os.path.basename(base)}")
+        log(f"batched RS rebuild of shards {REBUILD_LOST} x {len(bases)} "
+            f"{out['rs_rebuild']['wall_s']:.3f} s: identical, .ecc matches")
+        shutil.rmtree(os.path.join(work, "rs"))
+        shutil.rmtree(os.path.join(work, "rs_ref"))
+
+        lrc = os.path.join(work, "lrc", "1")
+        lrc_ref = os.path.join(work, "lrc_ref", "1")
+        payloads = write_volume(lrc, LRC_MIB // args.batch_div * MIB,
+                                args.seed + 20)
+        timed("lrc_encode", lambda rec: batch_encode_files(
+            [lrc], mesh, max_batch_bytes=BATCH_BYTES, codec="lrc",
+            recorder=rec))
+        _reference_encode(lrc, lrc_ref, dev, "lrc")
+        _same_files(lrc, lrc_ref, "LRC volume")
+        codec = get_codec("lrc")
+        present = tuple(s for s in range(14) if s not in LRC_REBUILD_LOST)
+        plan = plan_repair_reads(codec, present, LRC_REBUILD_LOST)
+        out["lrc_repair_plan"] = plan
+        check(plan["planned_read_shards"] == 5,
+              f"LRC local repair plans {plan['planned_read_shards']} reads")
+        for sid in LRC_REBUILD_LOST:
+            os.remove(lrc + to_ext(sid))
+        msgs = timed("lrc_rebuild", lambda rec: batch_rebuild_files(
+            [lrc], mesh, max_batch_bytes=BATCH_BYTES, recorder=rec))
+        check(len(msgs) == 1 and "read 5 shards" in msgs[0],
+              f"LRC batched rebuild: {msgs}")
+        _check_rebuilt(lrc, lrc_ref, LRC_REBUILD_LOST, "LRC volume")
+        log(f"LRC: batched encode identical to write_ec_files; local rebuild "
+            f"of {LRC_REBUILD_LOST} read {plan['union_reads']}: identical")
+
+        for sid in LRC_READ_LOST:
+            os.remove(lrc + to_ext(sid))
+        rng = np.random.default_rng(args.seed + 21)
+        ids = sorted(payloads)
+        sample = [ids[i] for i in rng.choice(len(ids), min(READS, len(ids)),
+                                             replace=False)]
+        degraded = [0]
+
+        def reads(_rec):
+            vol = EcVolume(lrc, device=dev)
+            try:
+                for nid in sample:
+                    before = apply_bitmatrix.launches
+                    check(vol.read_needle(nid).data == payloads[nid],
+                          f"LRC needle {nid} read back wrong")
+                    degraded[0] += apply_bitmatrix.launches > before
+            finally:
+                vol.close()
+
+        timed("lrc_reads", reads)
+        out["lrc_reads"].update(reads=len(sample), degraded_reads=degraded[0])
+        log(f"LRC: {len(sample)} reads with shards {LRC_READ_LOST} lost "
+            f"verified, {degraded[0]} degraded")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    c = {k: out[k]["launches"] for k in PHASE6_STEPS}
+    for step, fn, variant in (("rs_encode", "rs_bitmatrix_crc", "10->4"),
+                              ("rs_encode_unfused", "rs_bitmatrix", "10->4"),
+                              ("rs_rebuild", "rs_bitmatrix_crc", "10->4"),
+                              ("lrc_encode", "rs_bitmatrix_crc", "10->4"),
+                              ("lrc_rebuild", "rs_bitmatrix_crc",
+                               "generic<=16"),
+                              ("lrc_reads", "rs_bitmatrix", "generic<=16")):
+        check(c[step][fn]["by_instantiation"][variant] > 0,
+              f"{step}: {fn} {variant} never launched")
+    for step, fn in (("rs_encode", "rs_bitmatrix_crc"),
+                     ("rs_rebuild", "rs_bitmatrix_crc"),
+                     ("rs_encode_unfused", "rs_bitmatrix")):
+        check(c[step][fn]["volume_axis_launches"] > 0,
+              f"{step}: no {fn} launch with a volume axis")
+    return out
+
+
+def entry(t, plain, lib, k_in, k_out, width, crc, volumes=1):
+    """A timing row: kernel, plain and library ms, and the bound for
+    `volumes` volumes of (k_in -> k_out, width)."""
+    cols = volumes * width
+    nbytes = (k_in + k_out) * cols
+    ops = 8 * k_out * 8 * k_in * cols
+    if crc:
+        nbytes += 4 * (k_in + k_out) * (cols // 4096)
+        ops += (k_in + k_out) * 8 * 32 * cols
+    b, by = bound(nbytes, ops)
+    shape = f"{k_in}->{k_out}, n={width}"
+    return dict(ms=t["ms"], plain_ms=plain["ms"], bound_ms=b, bound_by=by,
+                library_ms=lib["ms"], host_us=t["host_us"],
+                queue_filled=t["queue_filled"],
+                shape=shape if volumes == 1 else f"{volumes} x ({shape})")
+
+
+def _library_ms(torch, dev, masks_d, x, consts=None) -> dict:
+    """The torch.matmul yardstick on pre-unpacked bf16 bit planes of x
+    ((k, n) or (V, k, n), volumes side by side): the bit-matrix product,
+    and for K2 (consts given) also the CRC contraction of every row's
+    planes with W0, (8 (k + r) n / 4096, 4096) @ (4096, 32)."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import unpack_bitmatrix
+    k = x.shape[-2]
+    flat = x if x.dim() == 2 else x.transpose(0, 1).reshape(k, -1)
+    out_rows = masks_d.shape[0] // 8
+    rows = k + (out_rows if consts is not None else 0)
+    planes = torch.zeros((8 * rows, flat.shape[1]), dtype=torch.bfloat16,
+                         device=dev)
+    for s in range(8):
+        planes[s * k:(s + 1) * k] = (flat >> s) & 1
+    data_planes = planes[:8 * k]
+    bm = unpack_bitmatrix(masks_d).to(torch.bfloat16)
+    if consts is None:
+        t = cuda_ms(torch, lambda i: torch.matmul(bm, data_planes), 20)
+    else:
+        w0 = ((consts[0].to(torch.int64)[:, None]
+               >> torch.arange(32, device=dev)) & 1).to(torch.bfloat16)
+        tiles = planes.reshape(-1, 4096)
+        t = cuda_ms(torch, lambda i: (torch.matmul(bm, data_planes),
+                                      torch.matmul(tiles, w0)), 20)
+    del planes, data_planes, flat
+    torch.cuda.empty_cache()
+    return t
+
+
+def batch_timings(torch, dev, kern: dict, args) -> dict:
+    """K1 and K2 at the batched path's shapes: the (4, 10, 4 MiB) encode
+    step with the RS parity matrix, the largest whole-shard rebuild step
+    (2, 10, ceil(512 MiB / 10) MiB) with the decode matrix of shards
+    1/3/9/12, and LRC's local repair 5 -> 1 (K1 at 1 MiB, K2 at one
+    26 MiB LRC shard).  Each kernel's timing keeps the queue filled;
+    its plain version and the matmul yardstick beside it."""
+    from seaweedfs_tpu_torch.codecs import get_codec
+    from seaweedfs_tpu_torch.ops.coder_cuda import (
+        apply_bitmatrix, apply_bitmatrix_crc, apply_bitmatrix_crc_torch,
+        apply_bitmatrix_torch, pack_bitmatrix, plane_major)
+
+    def host_masks(b, rows, cols):
+        return torch.from_numpy(pack_bitmatrix(plane_major(
+            np.asarray(b), rows, cols)))
+
+    rs, lrc = get_codec("rs"), get_codec("lrc")
+    par, consts = kern["parity_masks"], kern["crc_consts"]
+    present = tuple(s for s in range(14) if s not in REBUILD_LOST)
+    bmat, used = rs.decode_bitmatrix(present, REBUILD_LOST)
+    dec = host_masks(bmat, len(REBUILD_LOST), len(used))
+    local = lrc.repair_plan(tuple(s for s in range(14) if s != 3),
+                            [3])[0].reads
+    bmat, used5 = lrc.decode_bitmatrix(local, (3,))
+    rd5 = host_masks(bmat, 1, len(used5))
+    shard_mib = -(-BATCH_MIB[0] // args.batch_div // 10)
+    lrc_shard_mib = -(-LRC_MIB // args.batch_div // 10)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+
+    def rand(shape, count):
+        return [torch.randint(0, 256, shape, dtype=torch.uint8, device=dev,
+                              generator=g) for _ in range(count)]
+
+    cases = (  # (key, masks, inputs, k_out, reps, plain reps)
+        ("at_batch_4x10x4mib", par, rand((4, 10, KERNEL_N), 2), 4, 200, 2),
+        ("at_rebuild_2x10x%dmib" % shard_mib, dec,
+         rand((2, 10, shard_mib * MIB), 2), 4, 50, 1),
+        ("at_5_to_1", rd5, None, 1, 200, 2))
+    out = {"rs_bitmatrix": {}, "rs_bitmatrix_crc": {}}
+    for key, masks, xs, k_out, reps, preps in cases:
+        md = masks.to(dev)
+        for crc in (False, True):
+            if key == "at_5_to_1":
+                n = lrc_shard_mib * MIB if crc else MIB
+                xs = rand((5, n), 2 if crc else 8)
+                label = f"at_5_to_1_{n // MIB}mib"
+            else:
+                label = key
+            m = len(xs)
+            if crc:
+                t = cuda_ms(torch, lambda i: apply_bitmatrix_crc(
+                    masks, xs[i % m], *consts), reps)
+                plain = cuda_ms(torch, lambda i: apply_bitmatrix_crc_torch(
+                    md, xs[i % m], *consts), preps)
+            else:
+                t = cuda_ms(torch, lambda i: apply_bitmatrix(
+                    masks, xs[i % m]), reps)
+                plain = cuda_ms(torch, lambda i: apply_bitmatrix_torch(
+                    md, xs[i % m]), preps)
+            lib = _library_ms(torch, dev, md, xs[0], consts if crc else None)
+            x0 = xs[0]
+            out["rs_bitmatrix_crc" if crc else "rs_bitmatrix"][label] = entry(
+                t, plain, lib, x0.shape[-2], k_out, x0.shape[-1], crc,
+                x0.shape[0] if x0.dim() == 3 else 1)
+        del xs
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_timings(torch, dev, kern: dict, seed: int) -> dict:
     """Each kernel, its plain version and a torch.matmul yardstick at the
     main path's shapes: K1 at (10 -> 4, 4 MiB) with the rebuild's decode
@@ -440,18 +905,6 @@ def phase_timings(torch, dev, kern: dict, seed: int) -> dict:
                                        torch.matmul(tiles, w0)), 20)
     del planes, planes_q, rows_planes, tiles
 
-    def entry(t, plain, lib, k_in, k_out, width, crc):
-        nbytes = (k_in + k_out) * width
-        ops = 8 * k_out * 8 * k_in * width
-        if crc:
-            nbytes += 4 * (k_in + k_out) * (width // 4096)
-            ops += (k_in + k_out) * 8 * 32 * width
-        b, by = bound(nbytes, ops)
-        return dict(ms=t["ms"], plain_ms=plain["ms"], bound_ms=b, bound_by=by,
-                    library_ms=lib["ms"], host_us=t["host_us"],
-                    queue_filled=t["queue_filled"],
-                    shape=f"{k_in}->{k_out}, n={width}")
-
     k1_entry = entry(k1, k1_plain, k1_lib, k, r, n, False)
     k1_entry["at_10_to_1_1mib"] = entry(k1q, k1q_plain, k1q_lib, k, 1, MIB, False)
     return {"rs_bitmatrix": k1_entry,
@@ -462,6 +915,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dat-mib", type=int, default=1024)
+    ap.add_argument("--batch-div", type=int, default=1,
+                    help="divide the batched path's volume sizes by this")
     args = ap.parse_args()
 
     import torch
@@ -490,21 +945,40 @@ def main() -> int:
 
     kern = phase_kernels(torch, dev, args.seed)
     main_path = phase_main_path(torch, dev, args)
+    batch = phase_batch(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
+    for name, rows in batch_timings(torch, dev, kern, args).items():
+        timings[name].update(rows)
+    batch["single_volume_encode_gb_s"] = main_path["encode_gb_s"]
+    # Device busy share: launches x kernel ms at the step's shape (the
+    # encode's (4, 10, 4 MiB) and the rebuild's largest step, both upper
+    # bounds for the smaller steps) over the step's wall.
+    k2 = timings["rs_bitmatrix_crc"]
+    rebuild_key = next(k for k in k2 if k.startswith("at_rebuild"))
+    for step, ms in (("rs_encode", k2["at_batch_4x10x4mib"]["ms"]),
+                     ("rs_rebuild", k2[rebuild_key]["ms"])):
+        n = batch[step]["launches"]["rs_bitmatrix_crc"]["launches"]
+        batch[step]["device_busy_share"] = \
+            n * ms / 1e3 / batch[step]["wall_s"]
 
     kernels = [
         {"name": "rs_bitmatrix", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix.cu",
          "replaces": "seaweedfs_tpu/ops/coder_pallas.py:104",
-         "launches": main_path["launches"]["rs_bitmatrix"],
+         "launches": main_path["launches"]["rs_bitmatrix"] + sum(
+             batch[s]["launches"]["rs_bitmatrix"]["launches"]
+             for s in PHASE6_STEPS),
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
          "replaces": "seaweedfs_tpu/ops/coder_pallas.py:200",
-         "launches": main_path["launches"]["rs_bitmatrix_crc"],
+         "launches": main_path["launches"]["rs_bitmatrix_crc"] + sum(
+             batch[s]["launches"]["rs_bitmatrix_crc"]["launches"]
+             for s in PHASE6_STEPS),
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
     print(json.dumps({"main_path": main_path}))
+    print(json.dumps({"batch_path": batch}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,18 +7,20 @@ byte-crunching backend (the numpy oracle, the CUDA kernels of
 bit-matmul primitive, which takes the matrix as an argument.  Adding a
 codec therefore never touches a kernel.
 
-One codec is registered in this package: `rs`, RS(10,4), whose matrices
-come from the klauspost Vandermonde construction (`ops/gf256.py`), so
-shard bytes stay bit-identical with SeaweedFS's `.ec00`-`.ec13`.  The
-locality-aware solver below is kept whole, so a codec with local groups
-(LRC) can be built from its generator matrix with
-`codec_from_reference`; registering `lrc` waits for a later slice.
+Two codecs are registered:
+
+- `rs`  — RS(10,4), whose matrices come from the klauspost Vandermonde
+  construction (`ops/gf256.py`), so shard bytes stay bit-identical with
+  SeaweedFS's `.ec00`-`.ec13`;
+- `lrc` — LRC(10,2,2) (codecs/lrc.py): two local groups of 5 data
+  shards with one XOR local parity each, and two global Cauchy
+  parities; a single-shard repair reads 5 shards instead of 10.
 
 Decoding is a generic GF(2^8) solve: express each wanted shard's
 generator row as a combination of survivor rows (Gaussian elimination
 with a caller-supplied read-preference order), so the SAME solver
-serves RS's any-k-of-n decode and a local-group repair — the read set
-falls out of the algebra.
+serves RS's any-k-of-n decode, LRC's 5-read local repair and LRC's
+global fallback — the read set falls out of the algebra.
 """
 
 from __future__ import annotations

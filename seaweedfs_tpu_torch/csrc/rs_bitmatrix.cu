@@ -52,6 +52,12 @@
 // masks and seeded decode sets have 0 zero masks of 320, 46-50 % of the
 // bits set).
 //
+// Volume axis: a call mixes V independent volumes that share one matrix
+// (the batched encode and rebuild steps of parallel/sharded_codec.py).
+// Volume v reads in + v*in_rows*n and writes out + v*out_rows*n; the grid
+// is (blocks, V), so a volume is one blockIdx.y offset and the masks stay
+// launch-uniform.  A single-volume call is V = 1.
+//
 // Rows contiguous and 16-byte aligned, n a multiple of 16.  Launches on
 // the caller's stream, does not synchronise, allocates nothing.
 
@@ -78,6 +84,8 @@ __global__ void __launch_bounds__(kThreads, 3)
              const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
              long long n) {
   const long long nw = n / 4;
+  in += static_cast<long long>(blockIdx.y) * (IN * nw);
+  out += static_cast<long long>(blockIdx.y) * (OUT * nw);
 #pragma unroll
   for (int v = 0; v < kWords; ++v) {
     const long long w =
@@ -102,6 +110,8 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
   extern __shared__ uint32_t smask[];
   rsbm::load_masks(masks, out_rows, in_rows, smask);
   __syncthreads();
+  in += static_cast<long long>(blockIdx.y) * in_rows * n;
+  out += static_cast<long long>(blockIdx.y) * out_rows * n;
 
   const long long word0 =
       (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * kWords;
@@ -119,7 +129,7 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
 
 template <int OUT, int IN>
 cudaError_t launch_fixed(const void* host_words, const uint8_t* in,
-                         uint8_t* out, long long n, unsigned blocks,
+                         uint8_t* out, long long n, dim3 blocks,
                          cudaStream_t st) {
   rsbm::MaskWords<OUT, IN> m;
   std::memcpy(m.w, host_words, sizeof(m.w));
@@ -136,19 +146,20 @@ cudaError_t launch_fixed(const void* host_words, const uint8_t* in,
 //   words, read here on the host and passed by value),
 //   2: generic, in_rows <= 16, 3: generic, in_rows <= 32 (dev_masks: the
 //   (8*out_rows, in_rows) uint8 masks on the device).
-// in: (in_rows, n) uint8; out: (out_rows, n) uint8.
+// in: (volumes, in_rows, n) uint8; out: (volumes, out_rows, n) uint8.
 // Returns a cudaError_t value (0 = launched).
 extern "C" int rs_bitmatrix(int variant, const void* host_words,
                             const void* dev_masks, int out_rows, int in_rows,
                             const void* in, void* out, long long n,
-                            int device, void* stream) {
+                            int volumes, int device, void* stream) {
   if (out_rows < 1 || out_rows > 32 || in_rows < 1 || in_rows > 32 ||
-      n <= 0 || n % 16 != 0) {
+      n <= 0 || n % 16 != 0 || volumes < 1 || volumes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((n + kTile - 1) / kTile);
+  const dim3 blocks(static_cast<unsigned>((n + kTile - 1) / kTile),
+                    static_cast<unsigned>(volumes));
   auto st = static_cast<cudaStream_t>(stream);
   const auto* src = static_cast<const uint8_t*>(in);
   auto* dst = static_cast<uint8_t*>(out);

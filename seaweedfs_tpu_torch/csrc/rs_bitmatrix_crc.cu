@@ -55,9 +55,24 @@
 //
 // Partials equal crc_fold.tile_partials_np word for word (one per 4096
 // bytes per row, data rows first), so crc_fold.FusedCrcAccumulator folds
-// them unchanged.  in_rows, out_rows <= 16, n a multiple of 4096, the
-// input starting on an `.ecc` block boundary.  Launches on the caller's
-// stream, does not synchronise, allocates nothing.
+// them unchanged.
+//
+// Volume axis: a call may carry V volumes that share one matrix (the
+// batched steps of parallel/sharded_codec.py).  The persistent blocks walk
+// (volume, tile) pairs g in [0, V * ntiles): v = g / ntiles, tile = g %
+// ntiles.  Volume v reads in + v*in_rows*n, writes out + v*out_rows*n and
+// partials + v*(in_rows+out_rows)*ntiles, and the position matrix is the
+// one of the tile within its volume (tile % tpb): each volume's rows start
+// on an `.ecc` block boundary of their own.  The 10 -> 4 shape has a
+// single-volume instantiation beside the batched one (kVolumes false: v
+// is 0, no division), so the main path's one-volume launches keep the
+// registers they had: the per-volume pointers and the 64-bit division
+// cost the batched instantiation a few registers and a little spill at
+// the 128-register cap of 2 blocks per SM.
+//
+// in_rows, out_rows <= 16, n a multiple of 4096, each volume's input
+// starting on an `.ecc` block boundary.  Launches on the caller's stream,
+// does not synchronise, allocates nothing.
 
 #include <algorithm>
 #include <cstring>
@@ -188,6 +203,7 @@ struct CrcArgs {
   const uint8_t* in;
   uint8_t* out;
   long long n;
+  int volumes;
   const uint32_t* byte_table;
   const uint32_t* shifts;
   const uint32_t* pos_cols;
@@ -195,7 +211,28 @@ struct CrcArgs {
   uint32_t* partials;
 };
 
-template <int OUT, int IN>
+// The (volume, tile) pair g of a launch: the tile's index within its
+// volume, and the volume's input, output and partials.  Without kVolumes
+// the launch has one volume and g is the tile.
+struct VolumeTile {
+  long long tile;
+  const uint8_t* in;
+  uint8_t* out;
+  uint32_t* partials;
+};
+
+template <bool kVolumes>
+__device__ __forceinline__ VolumeTile volume_tile(const CrcArgs& a,
+                                                  long long g,
+                                                  long long ntiles,
+                                                  int in_rows, int out_rows) {
+  const long long v = kVolumes ? g / ntiles : 0;
+  return VolumeTile{g - v * ntiles, a.in + v * in_rows * a.n,
+                    a.out + v * out_rows * a.n,
+                    a.partials + v * (in_rows + out_rows) * ntiles};
+}
+
+template <int OUT, int IN, bool kVolumes>
 __global__ void __launch_bounds__(kThreads, 2)
     rs_crc_fixed(const __grid_constant__ rsbm::MaskWords<OUT, IN> m,
                  const __grid_constant__ CrcArgs a) {
@@ -204,21 +241,25 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint8_t* stage = smem + kTableBytes;
   fill_table(a.byte_table, tbl);
   const long long ntiles = a.n / kTile;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long word0 = tile * (kTile / 4) + threadIdx.x * kWords;
+  const long long total = kVolumes ? ntiles * a.volumes : ntiles;
+  for (long long g = blockIdx.x; g < total; g += gridDim.x) {
+    const VolumeTile vt = volume_tile<kVolumes>(a, g, ntiles, IN, OUT);
+    const long long word0 = vt.tile * (kTile / 4) + threadIdx.x * kWords;
     uint32_t x[IN][kWords];
-    rsbm::load_rows<IN>(a.in, a.n, word0, IN, x);
+    rsbm::load_rows<IN>(vt.in, a.n, word0, IN, x);
 #pragma unroll
     for (int j = 0; j < IN; ++j) stage_row(stage, j, x[j]);
+    uint8_t* out = vt.out;
     rsbm::mix_fixed<OUT, IN>(
         m, x, [=](int i, const uint32_t (&o)[kWords]) {
-          reinterpret_cast<uint4*>(a.out + i * a.n)[word0 / kWords] =
+          reinterpret_cast<uint4*>(out + i * a.n)[word0 / kWords] =
               make_uint4(o[0], o[1], o[2], o[3]);
           stage_row(stage, IN + i, o);
         });
     __syncthreads();
     crc_rows(stage, IN + OUT, tbl, a.shifts,
-             a.pos_cols + (tile % a.tpb) * 32, tile, ntiles, a.partials);
+             a.pos_cols + (vt.tile % a.tpb) * 32, vt.tile, ntiles,
+             vt.partials);
     __syncthreads();
   }
 }
@@ -234,11 +275,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   fill_table(a.byte_table, tbl);
   rsbm::load_masks(masks, out_rows, in_rows, smask);
   const long long ntiles = a.n / kTile;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long word0 = tile * (kTile / 4) + threadIdx.x * kWords;
+  const long long total = ntiles * a.volumes;
+  for (long long g = blockIdx.x; g < total; g += gridDim.x) {
+    const VolumeTile vt = volume_tile<true>(a, g, ntiles, in_rows, out_rows);
+    const long long word0 = vt.tile * (kTile / 4) + threadIdx.x * kWords;
     __syncthreads();  // masks loaded; the previous tile's CRC phase done
     uint32_t x[16][kWords];
-    rsbm::load_rows<16>(a.in, a.n, word0, in_rows, x);
+    rsbm::load_rows<16>(vt.in, a.n, word0, in_rows, x);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       if (j < in_rows) stage_row(stage, j, x[j]);
@@ -246,13 +289,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < out_rows; ++i) {
       uint32_t o[kWords];
       rsbm::mix_shared<16>(smask, out_rows, in_rows, i, x, o);
-      reinterpret_cast<uint4*>(a.out + i * a.n)[word0 / kWords] =
+      reinterpret_cast<uint4*>(vt.out + i * a.n)[word0 / kWords] =
           make_uint4(o[0], o[1], o[2], o[3]);
       stage_row(stage, in_rows + i, o);
     }
     __syncthreads();
     crc_rows(stage, in_rows + out_rows, tbl, a.shifts,
-             a.pos_cols + (tile % a.tpb) * 32, tile, ntiles, a.partials);
+             a.pos_cols + (vt.tile % a.tpb) * 32, vt.tile, ntiles,
+             vt.partials);
   }
 }
 
@@ -294,49 +338,63 @@ cudaError_t resident_blocks(Kernel kernel, size_t smem, int device,
   return cudaSuccess;
 }
 
+template <int OUT, int IN, bool kVolumes>
+cudaError_t launch_crc_fixed(const void* host_words, const CrcArgs& a,
+                             int device, long long needed, cudaStream_t st) {
+  const size_t smem = smem_bytes(IN + OUT);
+  unsigned blocks = 0;
+  cudaError_t err = resident_blocks(rs_crc_fixed<OUT, IN, kVolumes>, smem,
+                                    device, needed, &blocks);
+  if (err != cudaSuccess) return err;
+  rsbm::MaskWords<OUT, IN> m;
+  std::memcpy(m.w, host_words, sizeof(m.w));
+  rs_crc_fixed<OUT, IN, kVolumes><<<blocks, kThreads, smem, st>>>(m, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // variant: index into ops/coder_cuda.py K2_VARIANTS — 0: 10 -> 4 fixed
 // (host_words: the 8*4*10 mask words, read here on the host and passed by
 // value), 1: generic, in_rows and out_rows <= 16 (dev_masks: the
 // (8*out_rows, in_rows) uint8 masks on the device).
-// in: (in_rows, n) uint8; out: (out_rows, n) uint8; byte_table: (256,)
-// words; shift_tables: (5, 4, 256) words (Z^64, Z^256, Z^512, Z^1024,
-// Z^2048); pos_cols: (tpb*32,) words; partials: (in_rows+out_rows,
-// n/4096) words.  Returns a cudaError_t value (0 = launched).
+// in: (volumes, in_rows, n) uint8; out: (volumes, out_rows, n) uint8;
+// byte_table: (256,) words; shift_tables: (5, 4, 256) words (Z^64, Z^256,
+// Z^512, Z^1024, Z^2048); pos_cols: (tpb*32,) words; partials: (volumes,
+// in_rows+out_rows, n/4096) words.  Returns a cudaError_t value (0 =
+// launched).
 extern "C" int rs_bitmatrix_crc(int variant, const void* host_words,
                                 const void* dev_masks, int out_rows,
                                 int in_rows, const void* in, void* out,
-                                long long n, const void* byte_table,
+                                long long n, int volumes,
+                                const void* byte_table,
                                 const void* shift_tables,
                                 const void* pos_cols, int tpb, void* partials,
                                 int device, void* stream) {
   if (out_rows < 1 || out_rows > 16 || in_rows < 1 || in_rows > 16 ||
-      n <= 0 || n % kTile != 0 || tpb < 1) {
+      n <= 0 || n % kTile != 0 || tpb < 1 || volumes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long ntiles = n / kTile;
+  const long long needed = n / kTile * volumes;
   auto st = static_cast<cudaStream_t>(stream);
   const CrcArgs a{static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out),
-                  n, static_cast<const uint32_t*>(byte_table),
+                  n, volumes, static_cast<const uint32_t*>(byte_table),
                   static_cast<const uint32_t*>(shift_tables),
                   static_cast<const uint32_t*>(pos_cols), tpb,
                   static_cast<uint32_t*>(partials)};
-  unsigned blocks = 0;
   if (variant == 0 && in_rows == 10 && out_rows == 4 && host_words != nullptr) {
-    const size_t smem = smem_bytes(14);
-    err = resident_blocks(rs_crc_fixed<4, 10>, smem, device, ntiles, &blocks);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    rsbm::MaskWords<4, 10> m;
-    std::memcpy(m.w, host_words, sizeof(m.w));
-    rs_crc_fixed<4, 10><<<blocks, kThreads, smem, st>>>(m, a);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(
+        volumes == 1
+            ? launch_crc_fixed<4, 10, false>(host_words, a, device, needed, st)
+            : launch_crc_fixed<4, 10, true>(host_words, a, device, needed,
+                                            st));
   }
+  unsigned blocks = 0;
   if (variant == 1 && dev_masks != nullptr) {
     const size_t smem = smem_bytes(kMaxRows) + sizeof(uint32_t) * 8 * 16 * 16;
-    err = resident_blocks(rs_crc_generic, smem, device, ntiles, &blocks);
+    err = resident_blocks(rs_crc_generic, smem, device, needed, &blocks);
     if (err != cudaSuccess) return static_cast<int>(err);
     rs_crc_generic<<<blocks, kThreads, smem, st>>>(
         static_cast<const uint8_t*>(dev_masks), out_rows, in_rows, a);

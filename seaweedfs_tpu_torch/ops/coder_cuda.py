@@ -1,4 +1,4 @@
-"""Reed-Solomon coder on the hand-written CUDA kernels of ``csrc/``.
+"""Erasure coder on the hand-written CUDA kernels of ``csrc/``.
 
 Two kernels, bound through ctypes (`cuda_build.py`):
 
@@ -15,7 +15,11 @@ and apply_bitmatrix_crc_pallas.  Each wrapper launches its kernel for a
 tensor on a CUDA device (or raises) and runs the kernel's plain PyTorch
 version (`apply_bitmatrix_torch`, `apply_bitmatrix_crc_torch`) for a
 tensor on the CPU, and counts its launches in a `launches` attribute
-(and per instantiation in `variant_launches`).
+(per instantiation in `variant_launches`, and the launches that carry
+more than one volume in `volume_launches`).  Both take either one
+volume, (rows, n), or a volume axis, (V, rows, n) with every volume
+sharing the matrix: the batched steps of `parallel/sharded_codec.py`
+launch each kernel once for all V.
 
 Both kernels take the bit-matrix packed on the host (`pack_bitmatrix`):
 one 8-bit mask per (output bit row, input row) of the plane-major
@@ -190,7 +194,10 @@ def apply_bitmatrix_torch(masks: torch.Tensor,
                           shards: torch.Tensor) -> torch.Tensor:
     """K1's plain version: unpack one bit plane at a time, float32
     matmul (sums <= 8k are exact), &1, pack.  TF32 is switched off for
-    the call, so the product is exact on a CUDA device too."""
+    the call, so the product is exact on a CUDA device too.  A (V, k, n)
+    input is taken one volume at a time."""
+    if shards.dim() == 3:
+        return torch.stack([apply_bitmatrix_torch(masks, s) for s in shards])
     out_rows, in_rows = masks.shape[0] // 8, masks.shape[1]
     n = shards.shape[1]
     bmat = unpack_bitmatrix(masks).to(torch.float32)
@@ -219,7 +226,13 @@ def apply_bitmatrix_crc_torch(masks: torch.Tensor, shards: torch.Tensor,
     """K2's plain version: K1's plain parity, then the arithmetic of
     crc_fold.tile_partials_np with &1 after each contraction, one bit
     plane and one group of tiles at a time.  Returns (parity (r, n)
-    uint8, partials (k + r, n // tile) int32)."""
+    uint8, partials (k + r, n // tile) int32); a (V, k, n) input is taken
+    one volume at a time, each starting at tile position 0."""
+    if shards.dim() == 3:
+        outs = [apply_bitmatrix_crc_torch(masks, s, w0, plane_cols, pos_cols)
+                for s in shards]
+        return (torch.stack([p for p, _ in outs]),
+                torch.stack([q for _, q in outs]))
     tile = w0.shape[0]
     tpb = pos_cols.shape[0] // 32
     n = shards.shape[1]
@@ -266,10 +279,11 @@ _ARGTYPES = {
     "rs_bitmatrix": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_void_p],
+                     ctypes.c_int, ctypes.c_void_p],
     "rs_bitmatrix_crc": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 }
@@ -306,13 +320,27 @@ def _check_cuda(device: torch.device, **tensors) -> None:
             raise ValueError(f"{key} must be 16-byte aligned")
 
 
-def _check_mix(masks: torch.Tensor, shards: torch.Tensor) -> None:
+def _check_mix(masks: torch.Tensor, shards: torch.Tensor
+               ) -> tuple[int, int, int, int]:
+    """(volumes, in_rows, out_rows, n) of a (rows, n) or (V, rows, n)
+    call."""
     if masks.dtype != torch.uint8 or shards.dtype != torch.uint8:
         raise ValueError("masks and shards must be uint8")
-    if masks.dim() != 2 or shards.dim() != 2 or masks.shape[0] % 8 \
-            or masks.shape[1] != shards.shape[0]:
+    if masks.dim() != 2 or shards.dim() not in (2, 3) or masks.shape[0] % 8 \
+            or masks.shape[1] != shards.shape[-2]:
         raise ValueError(f"masks {tuple(masks.shape)} do not fit shards "
                          f"{tuple(shards.shape)}")
+    volumes = shards.shape[0] if shards.dim() == 3 else 1
+    if volumes < 1 or volumes > 65535:
+        raise ValueError(f"{volumes} volumes; a launch takes 1 to 65535")
+    return volumes, shards.shape[-2], masks.shape[0] // 8, shards.shape[-1]
+
+
+def _count(fn, names, variant: int, volumes: int) -> None:
+    fn.launches += 1
+    fn.variant_launches[names[variant]] += 1
+    if volumes > 1:
+        fn.volume_launches += 1
 
 
 def _kernel_masks(masks: torch.Tensor, specialised: bool, device
@@ -329,36 +357,38 @@ def _kernel_masks(masks: torch.Tensor, specialised: bool, device
 
 
 def apply_bitmatrix(masks: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
-    """(8r, k) packed masks x (k, n) uint8 shards -> (r, n) uint8.
+    """(8r, k) packed masks x (k, n) uint8 shards -> (r, n) uint8, or
+    (V, k, n) -> (V, r, n) for V volumes in one launch.
 
     A CUDA tensor launches K1 (n a multiple of 16, k and r <= 32, masks
     on the host) in the instantiation `k1_variant` picks; a CPU tensor
     runs apply_bitmatrix_torch."""
-    _check_mix(masks, shards)
+    volumes, in_rows, out_rows, n = _check_mix(masks, shards)
     if shards.device.type == "cpu":
         return apply_bitmatrix_torch(masks, shards)
     _check_cuda(shards.device, shards=shards)
-    out_rows, (in_rows, n) = masks.shape[0] // 8, shards.shape
     if out_rows > 32 or in_rows > 32 or n % 16:
         raise ValueError(f"K1 takes <= 32 rows in and out and n % 16 == 0, "
                          f"got {out_rows} x {in_rows}, n={n}")
     variant = k1_variant(in_rows, out_rows)
     words, dev_masks = _kernel_masks(masks, variant < len(K1_SPECIALISED),
                                      shards.device)
-    out = torch.empty((out_rows, n), dtype=torch.uint8, device=shards.device)
+    out = torch.empty((*shards.shape[:-2], out_rows, n), dtype=torch.uint8,
+                      device=shards.device)
     rc = _kernel("rs_bitmatrix")(
         variant, None if words is None else words.ctypes.data,
         None if dev_masks is None else dev_masks.data_ptr(), out_rows,
-        in_rows, shards.data_ptr(), out.data_ptr(), n, shards.device.index,
+        in_rows, shards.data_ptr(), out.data_ptr(), n, volumes,
+        shards.device.index,
         torch.cuda.current_stream(shards.device).cuda_stream)
     _check_launch("rs_bitmatrix", rc)
-    apply_bitmatrix.launches += 1
-    apply_bitmatrix.variant_launches[K1_VARIANTS[variant]] += 1
+    _count(apply_bitmatrix, K1_VARIANTS, variant, volumes)
     return out
 
 
 apply_bitmatrix.launches = 0
 apply_bitmatrix.variant_launches = dict.fromkeys(K1_VARIANTS, 0)
+apply_bitmatrix.volume_launches = 0
 
 
 def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
@@ -367,14 +397,16 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 plus fused `.ecc` CRC32-C tile partials: returns (parity
     (r, n) uint8, partials (k + r, n // 4096) int32 — the uint32 words
-    of seaweedfs_tpu's kernel; take `.view(np.uint32)` on the host).
+    of seaweedfs_tpu's kernel; take `.view(np.uint32)` on the host).  A
+    (V, k, n) input gives (V, r, n) and (V, k + r, n // 4096), each
+    volume's partials positioned within its own rows.
 
     A CUDA tensor launches K2 (n a multiple of 4096, k and r <= 16,
-    masks on the host, input starting on an `.ecc` block boundary) in
-    the instantiation `k2_variant` picks; it reads pos_cols and the
+    masks on the host, each volume starting on an `.ecc` block boundary)
+    in the instantiation `k2_variant` picks; it reads pos_cols and the
     device's `pack_crc_kernel_tables`, and w0 and plane_cols only set
     the tile.  A CPU tensor runs apply_bitmatrix_crc_torch."""
-    _check_mix(masks, shards)
+    volumes, in_rows, out_rows, n = _check_mix(masks, shards)
     if shards.device.type == "cpu":
         return apply_bitmatrix_crc_torch(masks, shards, w0, plane_cols,
                                          pos_cols)
@@ -382,7 +414,6 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
     if w0.shape[0] != BLOCK_N or plane_cols.shape[0] != 8 * 32 \
             or pos_cols.shape[0] % 32:
         raise ValueError("crc tables do not fit the kernel's 4096-byte tile")
-    out_rows, (in_rows, n) = masks.shape[0] // 8, shards.shape
     if out_rows > 16 or in_rows > 16 or n % BLOCK_N:
         raise ValueError(f"K2 takes <= 16 rows in and out and n % {BLOCK_N} "
                          f"== 0, got {out_rows} x {in_rows}, n={n}")
@@ -390,25 +421,26 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
     words, dev_masks = _kernel_masks(masks, variant < len(K2_SPECIALISED),
                                      shards.device)
     byte_table, shifts = _crc_kernel_tables(shards.device)
-    parity = torch.empty((out_rows, n), dtype=torch.uint8,
+    lead = shards.shape[:-2]
+    parity = torch.empty((*lead, out_rows, n), dtype=torch.uint8,
                          device=shards.device)
-    partials = torch.empty((in_rows + out_rows, n // BLOCK_N),
+    partials = torch.empty((*lead, in_rows + out_rows, n // BLOCK_N),
                            dtype=torch.int32, device=shards.device)
     rc = _kernel("rs_bitmatrix_crc")(
         variant, None if words is None else words.ctypes.data,
         None if dev_masks is None else dev_masks.data_ptr(), out_rows,
-        in_rows, shards.data_ptr(), parity.data_ptr(), n,
+        in_rows, shards.data_ptr(), parity.data_ptr(), n, volumes,
         byte_table.data_ptr(), shifts.data_ptr(), pos_cols.data_ptr(),
         pos_cols.shape[0] // 32, partials.data_ptr(), shards.device.index,
         torch.cuda.current_stream(shards.device).cuda_stream)
     _check_launch("rs_bitmatrix_crc", rc)
-    apply_bitmatrix_crc.launches += 1
-    apply_bitmatrix_crc.variant_launches[K2_VARIANTS[variant]] += 1
+    _count(apply_bitmatrix_crc, K2_VARIANTS, variant, volumes)
     return parity, partials
 
 
 apply_bitmatrix_crc.launches = 0
 apply_bitmatrix_crc.variant_launches = dict.fromkeys(K2_VARIANTS, 0)
+apply_bitmatrix_crc.volume_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -421,8 +453,9 @@ _DECODE_CACHE_CAP = 256
 
 
 class CudaCoder:
-    """RS coder whose byte mixing runs in the CUDA kernels on `device`
-    (or in their plain versions when `device` is the CPU).
+    """Erasure coder for any registered codec (RS, LRC) whose byte
+    mixing runs in the CUDA kernels on `device` (or in their plain
+    versions when `device` is the CPU).
 
     Results are tensors on the coder's device and are returned without
     a synchronize, so a caller can overlap host work with the kernel

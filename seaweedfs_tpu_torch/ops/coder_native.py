@@ -1,0 +1,80 @@
+"""Host Reed-Solomon coder backed by the repository's C++ kernels
+(native/libseaweed_native.so, `sw_gf_mix`).
+
+Port of seaweedfs_tpu/ops/coder_native.py: the host-side analog of
+klauspost/reedsolomon, through ctypes and the port's own
+`utils/native.py` loader.  It runs on the host only and raises at
+construction when the library cannot be loaded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+from ..utils import native as native_mod
+
+
+class NativeCoder:
+    def __init__(self, data_shards: int = 10, parity_shards: int = 4,
+                 matrix_kind: str = "vandermonde", codec=None):
+        from ..codecs import get_codec, rs_codec
+        lib = native_mod.load()
+        if lib is None:
+            raise RuntimeError(
+                "native library not built — run `make -C native`")
+        self._mix = native_mod.gf_encode_fn(lib)
+        self.codec = rs_codec(data_shards, parity_shards, matrix_kind) \
+            if codec is None else get_codec(codec)
+        self.data_shards = self.codec.data_shards
+        self.parity_shards = self.codec.parity_shards
+        self.total_shards = self.codec.total_shards
+        self.matrix_kind = self.codec.matrix_kind
+        self.parity_mat = self.codec.parity_matrix()
+
+    def _apply(self, mat: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        rows, cols = mat.shape
+        shards = np.ascontiguousarray(shards, dtype=np.uint8)
+        n = shards.shape[1]
+        out = np.empty((rows, n), dtype=np.uint8)
+        mat_flat = np.ascontiguousarray(mat, dtype=np.uint8)
+        ins = (ctypes.c_void_p * cols)(*[
+            shards[c].ctypes.data for c in range(cols)])
+        outs = (ctypes.c_void_p * rows)(*[
+            out[r].ctypes.data for r in range(rows)])
+        self._mix(mat_flat.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_uint8)), rows, cols, ins, outs, n)
+        return out
+
+    def encode(self, data) -> np.ndarray:
+        data = np.ascontiguousarray(data, dtype=np.uint8)
+        if data.shape[0] != self.data_shards:
+            raise ValueError(
+                f"expected {self.data_shards} data shards, got {data.shape[0]}")
+        return self._apply(self.parity_mat, data)
+
+    def encode_all(self, data) -> np.ndarray:
+        data = np.asarray(data, np.uint8)
+        return np.concatenate([data, self.encode(data)], axis=0)
+
+    def reconstruct(self, shards: dict[int, np.ndarray],
+                    wanted: list[int] | None = None) -> dict[int, np.ndarray]:
+        present = sorted(shards)
+        if wanted is None:
+            wanted = [s for s in range(self.total_shards) if s not in shards]
+        bad = [w for w in wanted if not 0 <= w < self.total_shards]
+        if bad:
+            raise ValueError(
+                f"shard ids {bad} out of range [0, {self.total_shards})")
+        if not wanted:
+            return {}
+        mat, used = self.codec.decode_matrix(tuple(present), tuple(wanted))
+        stacked = np.stack([np.asarray(shards[s], np.uint8) for s in used])
+        rec = self._apply(mat, stacked)
+        return {w: rec[i] for i, w in enumerate(wanted)}
+
+    def verify(self, shards) -> bool:
+        shards = np.asarray(shards, np.uint8)
+        parity = self.encode(shards[: self.data_shards])
+        return bool(np.array_equal(parity, shards[self.data_shards:]))

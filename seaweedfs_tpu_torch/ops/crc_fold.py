@@ -270,6 +270,25 @@ def block_crcs_from_partials(partials: np.ndarray, width: int,
     return [int(v) ^ t.block_const for v in lin]
 
 
+def block_crcs_from_partials_batched(partials: np.ndarray, width: int,
+                                     tile_n: int, block: int = BLOCK
+                                     ) -> np.ndarray:
+    """block_crcs_from_partials over every leading index at once:
+    (..., tiles) position-shifted tile partials -> (..., width // block)
+    uint32 crc32c values, row by row what the single-row fold gives.
+    The batched encode and rebuild steps fold K2's partials of (V, rows)
+    with it; partials past `width` (a multiple of `block`) are ignored."""
+    t = tables(tile_n, block)
+    if width % block:
+        raise ValueError(f"width {width} not a multiple of block {block}")
+    nb = width // block
+    p = np.asarray(partials)
+    p = p.view(np.uint32) if p.dtype == np.int32 \
+        else p.astype(np.uint32, copy=False)
+    use = p[..., : nb * t.tpb].reshape(*p.shape[:-1], nb, t.tpb)
+    return np.bitwise_xor.reduce(use, axis=-1) ^ np.uint32(t.block_const)
+
+
 # ---------------------------------------------------------------------------
 # Host-side streaming combiner — consumes kernel tile partials chunk by
 # chunk (plus optional ragged byte tails) and emits the same list of

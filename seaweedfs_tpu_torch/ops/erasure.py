@@ -2,18 +2,29 @@
 
 Backends, byte-identical to each other and to seaweedfs_tpu's:
 
-- "cuda":  the GF(2) bit-matrix kernels of `coder_cuda.py` on a CUDA
-           device; with ``device="cpu"`` the same coder runs the
-           kernels' plain PyTorch versions;
-- "numpy": the table-lookup oracle (host only).
+- "cuda":   the GF(2) bit-matrix kernels of `coder_cuda.py` on a CUDA
+            device; with ``device="cpu"`` the same coder runs the
+            kernels' plain PyTorch versions;
+- "torch":  the bit-matrix product as plain torch matmuls
+            (`coder_torch.py`) on the caller's device;
+- "native": the repository's C++ row mix (`coder_native.py`; host only,
+            needs native/libseaweed_native.so);
+- "numpy":  the table-lookup oracle (host only).
+
+Selection: the `backend` argument, else the SEAWEEDFS_TORCH_CODER
+environment variable, else "cuda".  The device is always the caller's
+``device=`` (default ``"cuda"``, which raises without a card); the
+host-only backends take ``device="cpu"``.
 
 Every backend shares one API: encode / encode_all / reconstruct /
-verify on (shards, n) uint8 rows.  The cuda backend returns tensors on
-its device; `host_array` brings any backend's result to the host.
+verify on (shards, n) uint8 rows.  The cuda and torch backends return
+tensors on their device; `host_array` brings any backend's result to
+the host.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Protocol
 
 import numpy as np
@@ -32,7 +43,10 @@ class ErasureCoder(Protocol):
     def verify(self, shards) -> bool: ...
 
 
-_BACKENDS = ("cuda", "numpy")
+_BACKENDS = ("cuda", "torch", "native", "numpy")
+
+# The backend chosen when neither the caller nor the environment names one.
+ENV_CODER = "SEAWEEDFS_TORCH_CODER"
 
 
 def resolve_device(device) -> torch.device:
@@ -55,18 +69,41 @@ def host_array(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def default_backend() -> str:
+    """SEAWEEDFS_TORCH_CODER when set (one of the backends), else cuda."""
+    env = os.environ.get(ENV_CODER)
+    if env:
+        if env not in _BACKENDS:
+            raise ValueError(f"{ENV_CODER}={env!r}; expected one of {_BACKENDS}")
+        return env
+    return "cuda"
+
+
+def _host_only(backend: str, device) -> None:
+    if resolve_device(device).type != "cpu":
+        raise ValueError(f"the {backend} backend runs on the host; "
+                         "pass device='cpu'")
+
+
 def new_coder(data_shards: int = 10, parity_shards: int = 4,
-              matrix_kind: str = "vandermonde", backend: str = "cuda",
+              matrix_kind: str = "vandermonde", backend: str | None = None,
               codec=None, device="cuda") -> ErasureCoder:
     """Build a coder.  `codec` (a registered codec name or Codec object)
-    overrides the RS shard-count arguments.  The numpy backend runs on
-    the host and takes only ``device="cpu"``."""
+    overrides the RS shard-count arguments: the codec is the scheme, the
+    backend only where the byte mix runs."""
+    backend = backend or default_backend()
     if backend == "numpy":
-        if resolve_device(device).type != "cpu":
-            raise ValueError("the numpy backend runs on the host; "
-                             "pass device='cpu'")
+        _host_only(backend, device)
         from .coder_numpy import NumpyCoder
         return NumpyCoder(data_shards, parity_shards, matrix_kind, codec)
+    if backend == "native":
+        _host_only(backend, device)
+        from .coder_native import NativeCoder
+        return NativeCoder(data_shards, parity_shards, matrix_kind, codec)
+    if backend == "torch":
+        from .coder_torch import TorchCoder
+        return TorchCoder(data_shards, parity_shards, matrix_kind,
+                          codec=codec, device=device)
     if backend == "cuda":
         from .coder_cuda import CudaCoder
         return CudaCoder(data_shards, parity_shards, matrix_kind,

@@ -1,0 +1,352 @@
+"""Bounded-depth three-stage stream pipeline: prefetch | device | drain.
+
+Port of seaweedfs_tpu/parallel/stream_pipeline.py (host Python, nearly
+verbatim).  The serialized batch EC loop pays sum(stages) per chunk —
+stack the next batch, THEN dispatch the kernel, THEN wait and write.
+This pipeline overlaps them so per-chunk wall time approaches
+max(stage):
+
+    producer thread:  items() generator — read/stack chunk k+2
+                      (IO + numpy, runs while the device computes)
+    caller thread:    dispatch(item) — H2D + kernel launch + D2H for k+1
+                      (asynchronous on a CUDA stream: returns a handle
+                      holding a recorded CUDA event)
+    drain thread:     drain(handle) — wait for that event, then shard
+                      writes for chunk k
+
+Bounded queues on both sides cap live chunks at depth per side, so a
+volume batch never holds more than ~2*depth stacked chunks in host
+memory — the reusable pinned host buffer discipline is the caller's
+(cluster_encode keeps a buffer pool sized to the pipeline depth and
+recycles a buffer only after its chunk drains).
+
+``depth=0`` degenerates to the fully serialized loop.
+
+The ``recorder`` records every stage transition with an injectable
+clock (no sleeps, no wall-time flakiness), so a test can assert the next
+H2D was issued before the previous device step completed, and collects
+per-batch stage spans for the occupancy readers.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Iterable
+
+
+class PipelineRecorder:
+    """Thread-safe, bounded (event, index, t) log plus per-batch stage
+    spans, with an injectable clock.
+
+    The overlap regression's recorder, and the stage-span recorder the
+    batched encode and rebuild take (cluster_encode, cluster_rebuild).
+    Both stores are bounded rings so an arbitrarily long streamed run
+    holds constant memory: transition events keep the overlap
+    regression exact, and `note_span()` feeds the gantt /
+    device-occupancy / bubble readers.
+
+    Tests inject a counter clock so event ordering is exact sequence
+    order; production uses the default monotonic clock."""
+
+    def __init__(self, clock: Callable[[], float] | None = None,
+                 maxlen: int = 4096):
+        self.clock = clock or time.monotonic
+        self._events: deque = deque(maxlen=maxlen)
+        # (stage, index, t0, t1) — stages: stack|dispatch|device|drain
+        self._spans: deque = deque(maxlen=maxlen)
+        self._lock = threading.Lock()
+        self._cond = threading.Condition(self._lock)
+
+    def record(self, event: str, index: int) -> None:
+        with self._cond:
+            self._events.append((event, index, self.clock()))
+            self._cond.notify_all()
+
+    def note_span(self, stage: str, index: int, t0: float,
+                  t1: float) -> None:
+        """One completed stage interval for batch `index` (caller's
+        clock values, so waited device walls and injected test clocks
+        both work)."""
+        with self._lock:
+            self._spans.append((stage, index, float(t0), float(t1)))
+
+    def events(self) -> list[tuple[str, int, float]]:
+        with self._lock:
+            return list(self._events)
+
+    def spans(self) -> list[tuple[str, int, float, float]]:
+        with self._lock:
+            return list(self._spans)
+
+    # -- occupancy / gantt read side ------------------------------------
+    # Everything below computes at read time from the bounded span ring
+    # — nothing here runs on the pipeline hot path.
+
+    def stage_seconds(self) -> dict[str, float]:
+        """Sum of each stage's spans.  With the stages overlapping, the
+        sums together exceed the wall clock of the run."""
+        out: dict[str, float] = {}
+        for stage, _i, t0, t1 in self.spans():
+            out[stage] = out.get(stage, 0.0) + (t1 - t0)
+        return out
+
+    def gantt(self, last: int = 8) -> list[dict]:
+        """Per-batch stage timeline for the most recent `last` batches:
+        [{"index": i, "stages": {stage: [t0, t1]}}] ordered by index.
+        A stage noted twice for one index keeps the widest interval."""
+        rows: dict[int, dict] = {}
+        for stage, i, t0, t1 in self.spans():
+            st = rows.setdefault(i, {})
+            if stage in st:
+                st[stage] = [min(st[stage][0], t0), max(st[stage][1], t1)]
+            else:
+                st[stage] = [t0, t1]
+        idxs = sorted(rows)[-last:]
+        return [{"index": i, "stages": rows[i]} for i in idxs]
+
+    @staticmethod
+    def _union(intervals: list[tuple[float, float]]) -> list[list[float]]:
+        merged: list[list[float]] = []
+        for t0, t1 in sorted(intervals):
+            if t1 <= t0:
+                continue
+            if merged and t0 <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], t1)
+            else:
+                merged.append([t0, t1])
+        return merged
+
+    def device_occupancy(self) -> dict:
+        """Fraction of the recorded window the device was busy (union
+        of `device` spans over [first span start, last span end]), plus
+        each stage's active share of the same window."""
+        spans = self.spans()
+        if not spans:
+            return {"window": None, "busy_seconds": 0.0,
+                    "fraction": None, "stages": {}}
+        lo = min(t0 for _s, _i, t0, _t1 in spans)
+        hi = max(t1 for _s, _i, _t0, t1 in spans)
+        window = max(hi - lo, 1e-12)
+        by_stage: dict[str, list] = {}
+        for stage, _i, t0, t1 in spans:
+            by_stage.setdefault(stage, []).append((t0, t1))
+        shares = {stage: round(sum(b - a for a, b in
+                                   self._union(iv)) / window, 6)
+                  for stage, iv in sorted(by_stage.items())}
+        busy = sum(b - a for a, b in
+                   self._union(by_stage.get("device", [])))
+        return {"window": [lo, hi],
+                "busy_seconds": round(busy, 9),
+                "fraction": round(busy / window, 6),
+                "stages": shares}
+
+    def bubble_attribution(self) -> dict:
+        """Where the device idled: gaps in the device-busy union are
+        attributed to whichever non-device stages were active during
+        the gap (the stage the device was waiting on); gap time no
+        stage covers is `idle`.  `starving_stage` names the biggest
+        contributor — the thing to widen next."""
+        spans = self.spans()
+        device = self._union([(t0, t1) for s, _i, t0, t1 in spans
+                              if s == "device"])
+        if not device:
+            return {"bubble_seconds": 0.0, "by_stage": {},
+                    "starving_stage": ""}
+        lo = min(t0 for _s, _i, t0, _t1 in spans)
+        hi = max(t1 for _s, _i, _t0, t1 in spans)
+        gaps: list[tuple[float, float]] = []
+        cur = lo
+        for a, b in device:
+            if a > cur:
+                gaps.append((cur, a))
+            cur = max(cur, b)
+        if hi > cur:
+            gaps.append((cur, hi))
+        others: dict[str, list[list[float]]] = {}
+        for s, _i, t0, t1 in spans:
+            if s != "device":
+                others.setdefault(s, []).append((t0, t1))
+        others = {s: self._union(iv) for s, iv in others.items()}
+        by_stage: dict[str, float] = {}
+        covered = 0.0
+        total = sum(b - a for a, b in gaps)
+        for g0, g1 in gaps:
+            for stage, iv in others.items():
+                ov = sum(min(b, g1) - max(a, g0) for a, b in iv
+                         if min(b, g1) > max(a, g0))
+                if ov > 0.0:
+                    by_stage[stage] = by_stage.get(stage, 0.0) + ov
+                    covered += ov
+        idle = total - min(covered, total)
+        if idle > 1e-12:
+            by_stage["idle"] = by_stage.get("idle", 0.0) + idle
+        starving = ""
+        if by_stage:
+            starving = max(sorted(by_stage), key=lambda s: by_stage[s])
+        return {"bubble_seconds": round(total, 9),
+                "by_stage": {s: round(v, 9)
+                             for s, v in sorted(by_stage.items())},
+                "starving_stage": starving}
+
+    def seen(self, event: str, index: int) -> bool:
+        with self._lock:
+            return any(e == event and i == index
+                       for e, i, _t in self._events)
+
+    def wait_for(self, event: str, index: int,
+                 timeout: float = 30.0) -> bool:
+        """Block until (event, index) is recorded — lets a fake device
+        gate its completion on pipeline progress without sleeping."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while not any(e == event and i == index
+                          for e, i, _t in self._events):
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return False
+                self._cond.wait(remaining)
+            return True
+
+    def first_time(self, event: str, index: int) -> float | None:
+        with self._lock:
+            for e, i, t in self._events:
+                if e == event and i == index:
+                    return t
+        return None
+
+
+class _Stop:
+    """End-of-stream / error sentinel."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error: BaseException | None = None):
+        self.error = error
+
+
+def run_pipeline(items: Iterable[Any],
+                 dispatch: Callable[[Any], Any],
+                 drain: Callable[[Any], None],
+                 depth: int = 2,
+                 recorder: PipelineRecorder | None = None,
+                 cancel: threading.Event | None = None) -> int:
+    """Drive items through dispatch -> drain with `depth` in flight.
+
+    Returns the number of items processed.  Exceptions from any stage
+    cancel the others and re-raise on the caller thread (producer
+    blocked on a full queue is unblocked — never deadlocks).
+
+    `cancel` (optional) is used as the internal cancellation flag, so a
+    producer that blocks on resources OUTSIDE the pipeline's queues
+    (e.g. a bounded buffer pool whose buffers are released by drain)
+    can share it: when any stage dies, the flag is set and the
+    producer's own blocking waits can observe it instead of waiting on
+    a release that will never come."""
+    if depth <= 0:
+        n = 0
+        for i, item in enumerate(items):
+            if recorder:
+                recorder.record("produced", i)
+                recorder.record("dispatched", i)
+            handle = dispatch(item)
+            drain(handle)
+            if recorder:
+                recorder.record("drained", i)
+            n += 1
+        return n
+
+    q_in: "queue.Queue" = queue.Queue(maxsize=depth)
+    q_out: "queue.Queue" = queue.Queue(maxsize=depth)
+    cancelled = cancel if cancel is not None else threading.Event()
+    errors: list[BaseException] = []
+
+    # Every blocking queue op polls the cancel flag: whichever stage
+    # dies, the other two always unblock (no sleep-free deadlock path —
+    # the 0.2s poll only runs during shutdown/error, never steady state).
+    def _put(q, obj) -> bool:
+        while not cancelled.is_set():
+            try:
+                q.put(obj, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _get(q):
+        while True:
+            try:
+                return q.get(timeout=0.2)
+            except queue.Empty:
+                if cancelled.is_set():
+                    return _Stop()
+
+    def producer() -> None:
+        try:
+            for i, item in enumerate(items):
+                if recorder:
+                    recorder.record("produced", i)
+                if not _put(q_in, (i, item)):
+                    return
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+            cancelled.set()
+        finally:
+            _put(q_in, _Stop())
+
+    def drainer() -> None:
+        try:
+            while True:
+                got = _get(q_out)
+                if isinstance(got, _Stop):
+                    return
+                i, handle = got
+                drain(handle)
+                if recorder:
+                    recorder.record("drained", i)
+        except BaseException as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+            cancelled.set()
+
+    t_prod = threading.Thread(target=producer, daemon=True,
+                              name="ecpipe-prefetch")
+    t_drain = threading.Thread(target=drainer, daemon=True,
+                               name="ecpipe-drain")
+    t_prod.start()
+    t_drain.start()
+    n = 0
+    try:
+        while True:
+            got = _get(q_in)
+            if isinstance(got, _Stop) or cancelled.is_set():
+                break
+            i, item = got
+            handle = dispatch(item)
+            if recorder:
+                recorder.record("dispatched", i)
+            if not _put(q_out, (i, handle)):
+                break
+            n += 1
+    except BaseException:
+        cancelled.set()
+        raise
+    finally:
+        # Orderly finish: deliver the stop sentinel so the drainer
+        # waits for and writes every in-flight handle FIFO (a full q_out
+        # blocks until it makes room); on error paths the cancel flag
+        # short-circuits the wait.  Then free a producer stuck on a
+        # full q_in, and join both sides before surfacing anything.
+        _put(q_out, _Stop())
+        cancelled.set()
+        while True:
+            try:
+                q_in.get_nowait()
+            except queue.Empty:
+                break
+        t_prod.join()
+        t_drain.join()
+    if errors:
+        raise errors[0]
+    return n

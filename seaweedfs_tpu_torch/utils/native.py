@@ -2,7 +2,8 @@
 
 The library gives the host path its SSE4.2 CRC32-C (`sw_crc32c`), which
 every needle checksum and every `.ecc` block CRC on the CPU goes
-through.  The committed `native/libseaweed_native.so` is tried first;
+through, and the GF(2^8) row mix of the `native` coder backend
+(`sw_gf_mix`, ops/coder_native.py).  The committed `native/libseaweed_native.so` is tried first;
 when it does not load on this host (built elsewhere), the library is
 compiled once with `g++ -O3 -shared -fPIC` from
 `native/seaweed_native.cpp` into the port's git-ignored build
@@ -74,3 +75,18 @@ def crc32c_fn(lib: ctypes.CDLL):
         return fn(crc, bytes(data), len(data))
 
     return crc32c
+
+
+def gf_encode_fn(lib: ctypes.CDLL):
+    """Wrap the C++ GF(2^8) row mix (the native coder):
+
+    void sw_gf_mix(const uint8* mat, int rows, int cols,
+                   const uint8* const* shards_in, uint8** shards_out,
+                   size_t n)
+    """
+    fn = lib.sw_gf_mix
+    fn.restype = None
+    fn.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t]
+    return fn

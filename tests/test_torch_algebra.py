@@ -89,9 +89,11 @@ def test_decode_refuses_too_few_survivors_like_reference():
 
 
 def test_only_rs_is_registered():
-    assert codecs.codec_names() == ["rs"]
+    """The registry holds exactly the reference's codecs: rs and, since
+    the LRC slice, lrc; any other name raises."""
+    assert codecs.codec_names() == ref_codecs.codec_names() == ["lrc", "rs"]
     with pytest.raises(ValueError):
-        codecs.get_codec("lrc")
+        codecs.get_codec("lrc3")
 
 
 @pytest.mark.parametrize("scheme", SCHEMES, ids=_scheme_id)
@@ -180,3 +182,89 @@ def test_tile_partials_np_equal(tile, block):
     rows = rng.integers(0, 256, (3, 2 * max(block, tile)), dtype=np.uint8)
     assert np.array_equal(crc_fold.tile_partials_np(rows, tile, block),
                           ref_crc_fold.tile_partials_np(rows, tile, block))
+
+
+# ---------------------------------------------------------------------------
+# The registered LRC(10,2,2)
+# ---------------------------------------------------------------------------
+
+def test_lrc_codec_equal():
+    from seaweedfs_tpu.codecs import lrc as ref_lrc
+    from seaweedfs_tpu.ops import lrc_bitmatrix as ref_lrcb
+    from seaweedfs_tpu_torch.codecs import lrc
+    from seaweedfs_tpu_torch.ops import lrc_bitmatrix
+    mine, ref = codecs.get_codec("lrc"), ref_codecs.get_codec("lrc")
+    assert mine is lrc.LRC_10_2_2
+    assert np.array_equal(mine.matrix, ref.matrix)
+    assert np.array_equal(lrc.lrc_matrix(), ref_lrc.lrc_matrix())
+    assert (mine.data_shards, mine.parity_shards, mine.tolerance) == \
+        (ref.data_shards, ref.parity_shards, ref.tolerance)
+    assert [(g.data, g.parity) for g in mine.locality] == \
+        [(g.data, g.parity) for g in ref.locality]
+    assert (lrc.GLOBALS, lrc.GROUP_A.members, lrc.GROUP_B.members) == \
+        (ref_lrc.GLOBALS, ref_lrc.GROUP_A.members, ref_lrc.GROUP_B.members)
+    assert np.array_equal(mine.parity_bitmatrix(), ref.parity_bitmatrix())
+    assert np.array_equal(lrc_bitmatrix.parity_bitmatrix(),
+                          ref_lrcb.parity_bitmatrix())
+    assert np.array_equal(plane_major(mine.parity_bitmatrix(), 4, 10),
+                          ref_plane_major(ref.parity_bitmatrix(), 4, 10))
+    b, u = lrc_bitmatrix.decode_bitmatrix(tuple(range(1, 14)), (0,))
+    b_ref, u_ref = ref_lrcb.decode_bitmatrix(tuple(range(1, 14)), (0,))
+    assert u == u_ref and np.array_equal(b, b_ref)
+    for sid in range(14):
+        assert mine.min_repair_reads(sid) == ref.min_repair_reads(sid)
+
+
+def _lrc_pattern_equal(lost: tuple[int, ...]) -> None:
+    """Bit-matrices, `used` sets and repair plans for one loss pattern
+    equal the reference's, or both refuse the pattern alike."""
+    mine, ref = codecs.get_codec("lrc"), ref_codecs.get_codec("lrc")
+    present = tuple(s for s in range(14) if s not in lost)
+    try:
+        b_ref, u_ref = ref.decode_bitmatrix(present, lost)
+    except ValueError as e_ref:
+        with pytest.raises(ValueError) as e_mine:
+            mine.decode_bitmatrix(present, lost)
+        assert str(e_mine.value) == str(e_ref)
+        with pytest.raises(ValueError):
+            mine.repair_plan(present, list(lost))
+        return
+    b_mine, u_mine = mine.decode_bitmatrix(present, lost)
+    assert u_mine == u_ref, lost
+    assert np.array_equal(b_mine, b_ref), lost
+    assert [(r.sid, r.reads, r.local)
+            for r in mine.repair_plan(present, list(lost))] == \
+        [(r.sid, r.reads, r.local) for r in ref.repair_plan(present, list(lost))]
+
+
+@pytest.mark.parametrize("first", range(12))
+def test_lrc_every_three_loss_pattern_equal(first):
+    """All C(14,3) = 364 three-loss patterns, grouped by their lowest
+    lost shard: each decodes, exactly as the reference decodes it."""
+    mine = codecs.get_codec("lrc")
+    for rest in itertools.combinations(range(first + 1, 14), 2):
+        lost = (first, *rest)
+        _lrc_pattern_equal(lost)
+        present = tuple(s for s in range(14) if s not in lost)
+        mine.decode_matrix(present, lost)  # decodable: tolerance 3
+
+
+def test_lrc_one_per_group_and_both_globals_equal():
+    for a in range(5):
+        for b in range(5, 10):
+            _lrc_pattern_equal((a, b, 12, 13))
+    _lrc_pattern_equal((3, 7, 10, 11))
+
+
+def test_lrc_undecodable_patterns_raise_in_both():
+    """Four losses in one local group exceed the code: both packages
+    refuse them with the same message."""
+    mine, ref = codecs.get_codec("lrc"), ref_codecs.get_codec("lrc")
+    for lost in [(0, 1, 2, 3), (5, 6, 7, 8), (1, 2, 3, 10), (0, 1, 12, 13)]:
+        present = tuple(s for s in range(14) if s not in lost)
+        with pytest.raises(ValueError) as e_ref:
+            ref.decode_matrix(present, lost)
+        with pytest.raises(ValueError) as e_mine:
+            mine.decode_matrix(present, lost)
+        assert str(e_mine.value) == str(e_ref.value)
+        _lrc_pattern_equal(lost)

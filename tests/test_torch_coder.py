@@ -244,3 +244,137 @@ def test_plane_major_equal_reference():
     rng = np.random.default_rng(11)
     b = rng.integers(0, 2, (24, 40), dtype=np.uint8)
     assert np.array_equal(plane_major(b, 3, 5), ref_plane_major(b, 3, 5))
+
+
+# ---------------------------------------------------------------------------
+# The coder backends: torch, native, and the selection seam
+# ---------------------------------------------------------------------------
+
+def _codec_data(codec: str, n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, 256, (10, n), dtype=np.uint8)
+    return data, RefNumpyCoder(codec=codec).encode_all(data)
+
+
+@pytest.mark.parametrize("codec", ["rs", "lrc"])
+@pytest.mark.parametrize("n", [1, 777, 4097])
+def test_torch_coder_equals_jax_and_numpy(codec, n):
+    from seaweedfs_tpu.ops.coder_jax import JaxCoder
+    from seaweedfs_tpu_torch.ops.coder_torch import TorchCoder
+    data, full = _codec_data(codec, n, n)
+    coder = TorchCoder(codec=codec, device="cpu")
+    jax_coder = JaxCoder(codec=codec)
+    assert np.array_equal(host_array(coder.encode(data)),
+                          np.asarray(jax_coder.encode(data)))
+    assert np.array_equal(host_array(coder.encode_all(data)), full)
+    assert coder.verify(full)
+    lost = [3] if codec == "lrc" else [1, 6, 10, 13]
+    have = {s: full[s] for s in range(14) if s not in lost}
+    got = coder.reconstruct(have)
+    want = jax_coder.reconstruct(have)
+    assert sorted(got) == lost
+    for s in lost:
+        assert np.array_equal(host_array(got[s]), np.asarray(want[s]))
+        assert np.array_equal(host_array(got[s]), full[s])
+
+
+@pytest.mark.parametrize("codec", ["rs", "lrc"])
+def test_native_coder_equals_numpy(codec):
+    from seaweedfs_tpu_torch.utils import native as native_mod
+    if native_mod.load() is None:
+        pytest.skip("native library not built")
+    from seaweedfs_tpu.ops.coder_native import NativeCoder as RefNativeCoder
+    from seaweedfs_tpu_torch.ops.coder_native import NativeCoder
+    data, full = _codec_data(codec, 12345, 1)
+    coder = NativeCoder(codec=codec)
+    assert np.array_equal(coder.encode(data), full[10:])
+    assert np.array_equal(coder.encode(data), RefNativeCoder(codec=codec)
+                          .encode(data))
+    lost = (3, 7) if codec == "lrc" else (1, 6, 10, 13)
+    have = {i: full[i] for i in range(14) if i not in lost}
+    rec = coder.reconstruct(have)
+    assert all(np.array_equal(rec[s], full[s]) for s in lost)
+    assert coder.verify(full)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch", "native", "numpy"])
+@pytest.mark.parametrize("codec", ["rs", "lrc"])
+def test_new_coder_backends_agree(backend, codec):
+    from seaweedfs_tpu_torch.utils import native as native_mod
+    if backend == "native" and native_mod.load() is None:
+        pytest.skip("native library not built")
+    data, full = _codec_data(codec, 5000, 2)
+    coder = new_coder(backend=backend, codec=codec, device="cpu")
+    assert coder.codec.name == codec
+    assert np.array_equal(host_array(coder.encode(data)), full[10:])
+    have = {s: full[s] for s in range(14) if s not in (2, 12)}
+    got = coder.reconstruct(have, wanted=[2, 12])
+    assert all(np.array_equal(host_array(got[s]), full[s]) for s in (2, 12))
+
+
+def test_backend_selection_by_environment(monkeypatch):
+    from seaweedfs_tpu_torch.ops import erasure
+    from seaweedfs_tpu_torch.ops.coder_numpy import NumpyCoder as PortNumpy
+    from seaweedfs_tpu_torch.ops.coder_torch import TorchCoder
+    monkeypatch.delenv("SEAWEEDFS_TORCH_CODER", raising=False)
+    assert erasure.default_backend() == "cuda"
+    assert isinstance(new_coder(device="cpu"), CudaCoder)
+    monkeypatch.setenv("SEAWEEDFS_TORCH_CODER", "torch")
+    assert isinstance(new_coder(device="cpu"), TorchCoder)
+    monkeypatch.setenv("SEAWEEDFS_TORCH_CODER", "numpy")
+    assert isinstance(new_coder(device="cpu"), PortNumpy)
+    # an explicit backend wins over the environment
+    assert isinstance(new_coder(backend="cuda", device="cpu"), CudaCoder)
+    # the reference's variable does not select the port's backend
+    monkeypatch.delenv("SEAWEEDFS_TORCH_CODER")
+    monkeypatch.setenv("SEAWEEDFS_TPU_CODER", "numpy")
+    assert erasure.default_backend() == "cuda"
+    monkeypatch.setenv("SEAWEEDFS_TORCH_CODER", "pallas")
+    with pytest.raises(ValueError, match="SEAWEEDFS_TORCH_CODER"):
+        new_coder(device="cpu")
+
+
+def test_host_backends_refuse_a_card_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    for backend in ("numpy", "native", "torch", "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            new_coder(backend=backend)
+    with pytest.raises(ValueError, match="unknown erasure backend"):
+        new_coder(backend="jax", device="cpu")
+
+
+def test_cuda_coder_runs_lrc_by_name():
+    """CudaCoder(codec="lrc"): the registered codec runs end to end on
+    the kernels' plain versions, local repair with 5 rows."""
+    data, full = _codec_data("lrc", 9000, 3)
+    coder = CudaCoder(codec="lrc", device="cpu")
+    assert coder.codec is codecs.get_codec("lrc")
+    assert np.array_equal(host_array(coder.encode(data)), full[10:])
+    parity, parts = coder.encode_with_crc(data)
+    assert np.array_equal(host_array(parity), full[10:])
+    have = {s: full[s] for s in range(14) if s != 8}
+    _, used = coder._decode_masks(tuple(sorted(have)), (8,))
+    assert used == (5, 6, 7, 9, 11)
+    assert np.array_equal(host_array(coder.reconstruct(have, [8])[8]), full[8])
+
+
+def test_wrappers_take_a_volume_axis():
+    """(V, k, n) inputs: the plain versions give every volume what a
+    single-volume call gives, K2's partials positioned per volume."""
+    rs = codecs.get_codec("rs")
+    masks = _masks(plane_major(rs.parity_bitmatrix(), 4, 10))
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 10, 3 * BLOCK_N),
+                                      dtype=np.uint8))
+    out = apply_bitmatrix(masks, x)
+    assert out.shape == (3, 4, 3 * BLOCK_N)
+    consts = [torch.from_numpy(a) for a in pack_crc_tables(crc_fold.tables(4096))]
+    par, parts = apply_bitmatrix_crc(masks, x, *consts)
+    assert par.shape == (3, 4, 3 * BLOCK_N) and parts.shape == (3, 14, 3)
+    for v in range(3):
+        assert torch.equal(out[v], apply_bitmatrix(masks, x[v]))
+        p1, q1 = apply_bitmatrix_crc(masks, x[v], *consts)
+        assert torch.equal(par[v], p1) and torch.equal(parts[v], q1)
+    with pytest.raises(ValueError):
+        apply_bitmatrix(masks, torch.zeros((2, 9, 16), dtype=torch.uint8))

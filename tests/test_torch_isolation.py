@@ -34,6 +34,8 @@ for name in ("jax", "jaxlib", "seaweedfs_tpu"):
     sys.modules[name] = None
 import os, pkgutil, importlib, tempfile
 import numpy as np
+import torch
+torch.set_num_threads(1)
 import seaweedfs_tpu_torch
 for m in pkgutil.walk_packages(seaweedfs_tpu_torch.__path__,
                                "seaweedfs_tpu_torch."):
@@ -64,6 +66,20 @@ with tempfile.TemporaryDirectory() as d:
                    small_block_size=100)
     assert all(vol.read_needle(i).data == p for i, p in payloads.items())
     vol.close()
+    from seaweedfs_tpu_torch.parallel.cluster_encode import batch_encode_files
+    from seaweedfs_tpu_torch.parallel.cluster_rebuild import batch_rebuild_files
+    from seaweedfs_tpu_torch.parallel.mesh import make_mesh
+    lrc = os.path.join(d, "8")
+    with DatWriter(lrc) as w:
+        for i, p in payloads.items():
+            w.write_needle(Needle(cookie=i, id=i, data=p))
+    mesh = make_mesh(devices=[torch.device("cpu")])
+    batch_encode_files([lrc], mesh, codec="lrc")
+    os.remove(lrc + ".ec03")
+    assert "read 5 shards" in batch_rebuild_files([lrc], mesh)[0]
+    for backend in ("torch", "numpy"):
+        c = new_coder(backend=backend, codec="lrc", device="cpu")
+        assert host_array(c.encode(data)).shape == (4, 5000)
 assert not any(sys.modules.get(n) for n in ("jax", "jaxlib", "seaweedfs_tpu"))
 print("ISOLATED-OK")
 """

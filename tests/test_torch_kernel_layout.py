@@ -10,7 +10,8 @@ what it computes can be modelled in numpy step for step:
   interpret mode;
 - K2's table-driven CRC: byte table, zero-byte shift tables, position
   columns, the kernel's run and chain lengths and its combine order,
-  against seaweedfs_tpu's `crc_fold.tile_partials_np`;
+  against seaweedfs_tpu's `crc_fold.tile_partials_np`, and its walk over
+  (volume, tile) pairs with the position reset in every volume;
 - the shape -> instantiation map the wrappers pass to the C entry points.
 
 All of it is integer math: every comparison is equality.
@@ -31,7 +32,8 @@ from seaweedfs_tpu_torch.ops import crc_fold
 from seaweedfs_tpu_torch.ops.coder_cuda import (
     BLOCK_N, CRC_CHAINS, CRC_RUNS, CRC_SHIFT_LENGTHS, K1_SPECIALISED,
     K1_VARIANTS, K2_SPECIALISED, K2_VARIANTS, _kernel_masks,
-    apply_bitmatrix_torch, k1_variant, k2_variant, mask_words,
+    apply_bitmatrix_crc, apply_bitmatrix_torch, k1_variant, k2_variant,
+    mask_words,
     pack_bitmatrix, pack_crc_kernel_tables, pack_crc_tables, plane_major,
     unpack_bitmatrix)
 from seaweedfs_tpu_torch.ops.coder_numpy import NumpyCoder
@@ -232,10 +234,11 @@ def _zshift(table, v):
             ^ table[2][(v >> U32(16)) & 0xFF] ^ table[3][v >> U32(24)])
 
 
-def crc_kernel_model(rows: np.ndarray) -> np.ndarray:
+def crc_kernel_model(rows: np.ndarray, positions=None) -> np.ndarray:
     """numpy model of rs_bitmatrix_crc.cu's CRC half: (R, n) uint8 ->
     (R, n // 4096) uint32 partials, with the kernel's tables, run and
-    chain lengths, and combine order."""
+    chain lengths, and combine order.  Tile t takes the position matrix
+    positions[t] (default t mod tpb)."""
     byte_table, shifts = _kernel_tables()
     t = crc_fold.tables(BLOCK_N)
     pos = pack_crc_tables(t)[2].view(U32).reshape(t.tpb, 32)
@@ -258,7 +261,9 @@ def crc_kernel_model(rows: np.ndarray) -> np.ndarray:
         v = np.where((q >> lvl) & 1, v, z)
         v = v ^ v[..., q ^ (1 << lvl)]
     assert (v == v[..., :1]).all(), "every lane holds the row's value"
-    pcols = pos[np.arange(nt) % t.tpb]     # (nt, 32): P_(tile mod tpb)
+    if positions is None:
+        positions = np.arange(nt) % t.tpb
+    pcols = pos[positions]                 # (nt, 32): P_(tile mod tpb)
     lane = np.zeros_like(v)
     for off in (0, 1):                     # lane q: columns 2q and 2q + 1
         b = 2 * q + off
@@ -308,6 +313,64 @@ def test_crc_kernel_model_on_edge_rows():
     rows[3, BLOCK_N + 255] = 0x80
     assert np.array_equal(crc_kernel_model(rows),
                           ref_crc_fold.tile_partials_np(rows, BLOCK_N))
+
+
+def volume_tiles(volumes: int, ntiles: int, tpb: int):
+    """The kernel's persistent walk over (volume, tile) pairs: for g in
+    [0, V * ntiles), v = g // ntiles, tile = g % ntiles, and the position
+    matrix of the tile within its volume."""
+    g = np.arange(volumes * ntiles)
+    v = g // ntiles
+    tile = g - v * ntiles
+    return v, tile, tile % tpb
+
+
+def batched_crc_model(x: np.ndarray, flat_index: bool = False) -> np.ndarray:
+    """(V, R, n) -> (V, R, n // 4096) partials, tiles visited in the
+    kernel's g order; `flat_index` models the bug of positioning by g."""
+    vols, rows, n = x.shape
+    nt = n // BLOCK_N
+    tpb = crc_fold.tables(BLOCK_N).tpb
+    v, tile, pos = volume_tiles(vols, nt, tpb)
+    if flat_index:
+        pos = np.arange(vols * nt) % tpb
+    tiles = x.reshape(vols, rows, nt, BLOCK_N)[v, :, tile]  # (g, R, 4096)
+    flat = np.ascontiguousarray(tiles.transpose(1, 0, 2)).reshape(rows, -1)
+    parts = crc_kernel_model(flat, positions=pos)           # (R, g)
+    return parts.reshape(rows, vols, nt).transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("ntiles", [3, 260])
+def test_crc_volume_walk_resets_the_position_per_volume(ntiles):
+    """Widths that are multiples of 4096 but not of 1 MiB: every
+    volume's partials equal tile_partials_np of that volume alone, and a
+    flat tile index would have put volumes 1 and 2 at the wrong block
+    positions.  The port's plain K2 takes (V, k, n) alike."""
+    rng = np.random.default_rng(ntiles)
+    x = rng.integers(0, 256, (3, 5, ntiles * BLOCK_N), dtype=np.uint8)
+    got = batched_crc_model(x)
+    for v in range(3):
+        assert np.array_equal(got[v],
+                              ref_crc_fold.tile_partials_np(x[v], BLOCK_N))
+    flat = batched_crc_model(x, flat_index=True)
+    assert np.array_equal(flat[0], got[0])
+    assert not np.array_equal(flat[1], got[1])
+    consts = [torch.from_numpy(a) for a in pack_crc_tables(
+        crc_fold.tables(BLOCK_N))]
+    masks = torch.from_numpy(rng.integers(0, 256, (8, 5), dtype=np.uint8))
+    _par, parts = apply_bitmatrix_crc(masks, torch.from_numpy(x), *consts)
+    assert np.array_equal(parts.numpy().view(U32)[:, :5], got)
+
+
+def test_crc_volume_walk_at_whole_blocks_cannot_show_the_bug():
+    """At the batched path's whole-block widths (ntiles % 256 == 0) the
+    flat and per-volume indices agree: why the walk is tested above."""
+    v, tile, pos = volume_tiles(3, 512, 256)
+    assert np.array_equal(pos, np.arange(3 * 512) % 256)
+    v, tile, pos = volume_tiles(3, 260, 256)
+    assert not np.array_equal(pos, np.arange(3 * 260) % 256)
+    assert list(v[258:262]) == [0, 0, 1, 1] and list(tile[258:262]) == \
+        [258, 259, 0, 1]
 
 
 # ---------------------------------------------------------------------------
