@@ -10,7 +10,11 @@ Phases; any failure raises and the script exits non-zero:
 1. card    — require torch.cuda.is_available(); print nvidia-smi's name
              and power limit;
 2. build   — compile csrc/*.cu (one nvcc per source, in parallel) and
-             load the native CRC32-C library;
+             load the native CRC32-C library; probe the roofline plane's
+             peaks on the card (stats/roofline.py probe_peaks: int8 and
+             bf16 matmul, memory bandwidth, host<->device copies), so the
+             first ledger row does not pay the probe inside phase 4's
+             walls, and log them beside the data sheet's;
 3. kernels — every instantiation of K1 (rs_bitmatrix) and K2
              (rs_bitmatrix_crc) on the card against their plain PyTorch
              versions, byte for byte: K1 10->4 with the RS parity matrix
@@ -57,19 +61,42 @@ Phases; any failure raises and the script exits non-zero:
              of these paths runs with the launch counts reset just
              before it and read just after, and must have launched its
              instantiations (with a volume axis where it stacks).
+7. observability — phases 4 and 6 run with the roofline ledger armed
+             and the EC stage timing on (the defaults), and each of their
+             paths is a window: the ledger's rows, the
+             SeaweedFS_ec_stage_* histograms and the repair-read bytes
+             are read just before and just after it.  Phase 7 checks that
+             each window's ledger rows equal its kernel launches under the
+             catalog key of its call site, that every stage's bytes equal
+             the bytes the path moved (from the shard sizes), that every
+             achieved fraction is in (0, 1], the ledger's conservation,
+             the exposition against promcheck, an encode and a rebuild
+             occupancy doc, and the LRC volume's ec.repair.local event.
+             The hooks' cost, outside the counted windows and after the
+             launch counts are read: phase 4's degraded reads run again
+             with the hooks off, with the stage timing alone and armed
+             (SEAWEEDFS_TPU_EC_PROF, roofline.set_armed), in turns, and
+             so does one degraded read's coder call, beside each piece
+             the armed mode adds timed alone; phase 6's RS batched
+             encode runs again off and armed in turns.  Beside the
+             ledger's K1 10->4 row: that launch alone, timed by the
+             ledger's event pair, with the card busy and after idling.
 
-Phase 6 runs before phase 5, whose timings include its shapes.
+Phase 6 runs before phase 5, whose timings include its shapes; phase 7
+runs last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
 
-Prints a {"main_path": ...} line, a {"batch_path": ...} line, nvidia-smi's
-line, a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+Prints a {"main_path": ...} line, a {"batch_path": ...} line, an
+{"observability": ...} line, nvidia-smi's line, a {"kernels": [...]} line,
+and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -88,6 +115,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # as one operation.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 1979e12
+# The same data sheet's dense bf16 tensor-core rate, and PCIe Gen5 x16's
+# 64 GB/s per direction: what the roofline probes are read against.
+BF16_FLOPS_PER_S = 989.5e12
+PCIE_BYTES_PER_S = 64e9
 
 # torch.cuda._sleep spins for a count of SM clock cycles; the H100's
 # boost clock is below 2 GHz, so this many cycles last at least a second.
@@ -108,6 +139,24 @@ LRC_READ_LOST = (3, 7)
 EC_EXTS = tuple(f".ec{i:02d}" for i in range(14)) + (".ecx", ".vif", ".ecc")
 PHASE6_STEPS = ("rs_encode", "rs_encode_unfused", "rs_rebuild", "lrc_encode",
                 "lrc_rebuild", "lrc_reads")
+# The stages of the SeaweedFS_ec_stage_* histograms the EC paths feed.
+EC_STAGES = ("encode_kernel", "encode_crc_kernel", "reconstruct_kernel",
+             "batch_stack", "batch_encode_device", "batch_write",
+             "batch_gather", "batch_rebuild_device", "batch_scatter")
+# Catalog keys the ledger must hold after phases 4 and 6 (encode_kernel,
+# the unfused single-volume encode, runs on no path of the card).
+PATH_KERNELS = ("encode_crc_kernel", "reconstruct_kernel", "batch_encode",
+                "batch_reconstruct")
+# The hooks' modes: both off (SEAWEEDFS_TPU_EC_PROF=0, ledger disarmed);
+# the stage timing alone (event pair, settle, histograms); and armed
+# (timing plus a ledger row per launch, the default).
+# Reads and coder calls take the modes in turns call by call (the order
+# rotated from one call to the next); the batched encode's turns run
+# forwards then backwards, so no mode always runs later.
+HOOK_MODES = ("off", "timing", "armed")
+HOOK_ROUNDS = 2  # times each degraded read runs in each mode
+HOOK_TURNS_BATCH = ("off", "armed", "armed", "off", "off", "armed")
+SPLIT_N = 64 * 1024  # width of the per-call cost's coder calls
 
 
 def check(cond: bool, msg: str) -> None:
@@ -435,6 +484,221 @@ def read_counts() -> dict:
                                 ("rs_bitmatrix_crc", apply_bitmatrix_crc))}
 
 
+@contextlib.contextmanager
+def hooks(mode: str):
+    """The EC stage timing (SEAWEEDFS_TPU_EC_PROF) and the roofline
+    ledger (roofline.set_armed) in one of HOOK_MODES, restored after."""
+    from seaweedfs_tpu_torch.stats import roofline
+    check(mode in HOOK_MODES, f"hook mode {mode}")
+    armed, prof = roofline.ARMED, os.environ.get("SEAWEEDFS_TPU_EC_PROF")
+    roofline.set_armed(mode == "armed")
+    os.environ["SEAWEEDFS_TPU_EC_PROF"] = "0" if mode == "off" else "1"
+    try:
+        yield
+    finally:
+        roofline.set_armed(armed)
+        if prof is None:
+            del os.environ["SEAWEEDFS_TPU_EC_PROF"]
+        else:
+            os.environ["SEAWEEDFS_TPU_EC_PROF"] = prof
+
+
+def obs_snapshot(torch) -> dict:
+    """The observability counters phase 7 reads, once the card has run
+    every launch issued so far (so each timed launch is settled into the
+    ledger): ledger rows and analytic bytes per catalog key, bytes and
+    observations per EC stage, repair-read bytes per codec, and the
+    kernel wrappers' launches since the last reset_counts."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import (apply_bitmatrix,
+                                                    apply_bitmatrix_crc)
+    from seaweedfs_tpu_torch.stats import metrics, roofline
+    torch.cuda.synchronize()
+    rows: dict = {}
+    nbytes: dict = {}
+    for r in roofline.LEDGER.kernel_table():
+        rows[r["kernel"]] = rows.get(r["kernel"], 0) + r["count"]
+        nbytes[r["kernel"]] = nbytes.get(r["kernel"], 0) + r["bytes"]
+    return {
+        "rows": rows, "bytes": nbytes,
+        "stage_bytes": {s: metrics.ec_stage_bytes.value(stage=s)
+                        for s in EC_STAGES},
+        "stage_count": {s: metrics.ec_stage_seconds.count(stage=s)
+                        for s in EC_STAGES},
+        "repair": {c: metrics.ec_repair_read_bytes_total.value(codec=c)
+                   for c in ("rs", "lrc")},
+        "launches": apply_bitmatrix.launches + apply_bitmatrix_crc.launches}
+
+
+def obs_window(before: dict, after: dict) -> dict:
+    """What one path added to the planes (the non-zero differences of two
+    obs_snapshot's), with the ledger rows it recorded under `_rows`."""
+    from seaweedfs_tpu_torch.stats import roofline
+    out: dict = {}
+    for part in ("rows", "bytes", "stage_bytes", "stage_count", "repair"):
+        diff = {k: v - before[part].get(k, 0) for k, v in after[part].items()}
+        out[part] = {k: v for k, v in diff.items() if v}
+    out["launches"] = after["launches"] - before["launches"]
+    n = sum(out["rows"].values())
+    out["_rows"] = roofline.LEDGER.recent(n) if n else []
+    return out
+
+
+def read_pass(vol, sample, payloads) -> tuple[list, list]:
+    """Read every needle of `sample` and check it; returns the seconds of
+    the reads that launched K1 (degraded) and of the others."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import apply_bitmatrix
+    degraded, local = [], []
+    for nid in sample:
+        before = apply_bitmatrix.launches
+        t0 = time.perf_counter()
+        n = vol.read_needle(nid)
+        dt = time.perf_counter() - t0
+        check(n.data == payloads[nid], f"needle {nid} read back wrong")
+        (degraded if apply_bitmatrix.launches > before else local).append(dt)
+    return degraded, local
+
+
+def pct_ms(xs, q):
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
+
+
+def in_turns(items, run, rounds: int) -> dict:
+    """run(item) once in each hook mode for every item, `rounds` times,
+    the modes' order rotated from one item to the next: {mode: [seconds
+    per call]}, the lists in the same item order, so they pair up."""
+    out: dict = {m: [] for m in HOOK_MODES}
+    turn = 0
+    for _ in range(rounds):
+        for item in items:
+            for j in range(len(HOOK_MODES)):
+                mode = HOOK_MODES[(turn + j) % len(HOOK_MODES)]
+                with hooks(mode):
+                    t0 = time.perf_counter()
+                    run(item)
+                    out[mode].append(time.perf_counter() - t0)
+            turn += 1
+    return out
+
+
+def turns_summary(t: dict, scale: float) -> dict:
+    """Per mode the median call, and per mode the median of its paired
+    difference to the same call with the hooks off, in seconds x scale."""
+    off = np.asarray(t["off"])
+    return {"median": {m: float(np.median(v)) * scale for m, v in t.items()},
+            "paired_minus_off": {
+                m: float(np.median(np.asarray(v) - off)) * scale
+                for m, v in t.items() if m != "off"},
+            "calls_per_mode": len(off)}
+
+
+def _median_us(fn, reps: int) -> float:
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e6
+
+
+def hooks_per_call(torch, dev, reps: int = 300) -> dict:
+    """Where the hooks' cost of a degraded read goes, on the host: a
+    degraded read's coder call (CudaCoder reconstruct 10 -> 1 at
+    SPLIT_N, host copies in and out) `reps` times in each hook mode
+    (in_turns), in microseconds; and each piece the armed mode adds to
+    a launch, alone: the stage histograms, a ledger row (on a ledger of
+    its own), a settle with nothing pending, a timer's pooled event pair
+    taken, seen complete, read and given back, and how much more a
+    launch and a wait for it take with the pair recorded around the
+    launch than without (paired call by call)."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import CudaCoder, apply_bitmatrix
+    from seaweedfs_tpu_torch.ops.erasure import host_array
+    from seaweedfs_tpu_torch.stats import metrics, roofline
+
+    rng = np.random.default_rng(5)
+    coder = CudaCoder(device=dev)
+    shards = {i: rng.integers(0, 256, SPLIT_N, dtype=np.uint8)
+              for i in range(1, 11)}
+
+    def call():
+        host_array(coder.reconstruct(shards, wanted=[0])[0])
+
+    call()
+    calls = turns_summary(in_turns(range(reps), lambda _i: call(), 1), 1e6)
+
+    ledger = roofline.RooflineLedger()
+    torch.cuda.synchronize()  # every pooled pair's events complete
+
+    def timer():
+        t = roofline.KernelTimer(dev)
+        t.events()
+        return t.seconds()
+
+    # One launch and a wait for it, without and with a timer (the pair
+    # recorded by the launcher, then read and given back).
+    masks = coder._decode_masks(tuple(range(1, 11)), (0,))[0]
+    x = torch.from_numpy(np.stack(list(shards.values()))).to(dev)
+
+    def launch(timed):
+        t0 = time.perf_counter()
+        t = roofline.KernelTimer(dev) if timed else None
+        apply_bitmatrix(masks, x, timer=t)
+        torch.cuda.synchronize()
+        if t is not None:
+            t.seconds()
+        return time.perf_counter() - t0
+
+    pair_extra = []
+    for i in range(reps):
+        first = bool(i % 2)
+        a, b = launch(first), launch(not first)
+        pair_extra.append((a - b) if first else (b - a))
+
+    pieces = {
+        "observe_ec_stage": _median_us(lambda: metrics.observe_ec_stage(
+            "reconstruct_kernel", 1e-5, 10 * SPLIT_N), reps),
+        "ledger_record": _median_us(lambda: ledger.record(
+            "reconstruct_kernel", "rs", "int8", out_rows=1, in_rows=10,
+            n=SPLIT_N, seconds=1e-5, measured_bytes=11 * SPLIT_N,
+            device=dev), reps),
+        "settle_empty": _median_us(roofline.settle, reps),
+        "timer_pair": _median_us(timer, reps),
+        "launch_and_wait_with_pair_minus_without":
+            float(np.median(pair_extra)) * 1e6}
+    log(f"coder call 10->1 at {SPLIT_N} B, median us per hook mode: "
+        f"{calls}; armed pieces alone, us: {pieces}")
+    return {"coder_call_us": calls, "armed_pieces_us": pieces}
+
+
+def phase_probe(torch, dev) -> dict:
+    """The roofline plane's peaks, probed on the card (never read from a
+    cache), beside the data sheet's figures.  A failed probe or a zero
+    peak fails the phase."""
+    from seaweedfs_tpu_torch.stats import roofline
+    # Keep the probe cache inside the checkout (removed with _smoke_work).
+    os.environ.setdefault("SEAWEEDFS_TPU_ROOFLINE_CACHE",
+                          os.path.join(REPO, "_smoke_work", "peaks"))
+    doc = roofline.probe_peaks(dev, force=True)
+    check("error" not in doc, f"roofline probe failed: {doc.get('error')}")
+    flops = doc["matmul_flops"]
+    probed = {"int8_ops_s": flops.get("int8", 0.0),
+              "bf16_flops_s": flops.get("bf16", 0.0),
+              "membw_bytes_s": doc["membw_bps"],
+              "h2d_bytes_s": doc["h2d_bps"], "d2h_bytes_s": doc["d2h_bps"]}
+    sheet = {"int8_ops_s": INT_OPS_PER_S, "bf16_flops_s": BF16_FLOPS_PER_S,
+             "membw_bytes_s": HBM_BYTES_PER_S,
+             "h2d_bytes_s": PCIE_BYTES_PER_S, "d2h_bytes_s": PCIE_BYTES_PER_S}
+    for k, v in probed.items():
+        check(v > 0, f"roofline probe: {k} is {v}")
+    ratio = {k: probed[k] / sheet[k] for k in sheet}
+    log(f"roofline peaks of {doc['device_kind']} in {doc['probe_seconds']} s: "
+        + ", ".join(f"{k} {probed[k]:.4g} ({ratio[k]:.3f} of the data sheet)"
+                    for k in probed))
+    return {"device_kind": doc["device_kind"], "probed": probed,
+            "data_sheet": sheet, "probed_over_data_sheet": ratio,
+            "host_stream_bytes_s": doc["host_stream_bps"],
+            "probe_seconds": doc["probe_seconds"]}
+
+
 def phase_main_path(torch, dev, args) -> dict:
     from seaweedfs_tpu_torch.ec import to_ext
     from seaweedfs_tpu_torch.ec.encoder import (rebuild_ec_files,
@@ -459,11 +723,20 @@ def phase_main_path(torch, dev, args) -> dict:
             f"in {time.perf_counter() - t0:.1f} s")
 
         reset_counts()
+        obs: dict = {}
+        last = [obs_snapshot(torch)]
+
+        def close_window(name):
+            now = obs_snapshot(torch)
+            obs[name] = obs_window(last[0], now)
+            last[0] = now
 
         t0 = time.perf_counter()
         write_ec_files(base, device=dev)
         encode_s = time.perf_counter() - t0
+        close_window("main_encode")
         k2_encode = apply_bitmatrix_crc.launches
+        shard_bytes = os.path.getsize(base + to_ext(0))
         ecc = ShardChecksums.load(base)
         for sid in range(14):
             check(ecc.get(sid) == file_block_crcs(base + to_ext(sid)),
@@ -476,6 +749,7 @@ def phase_main_path(torch, dev, args) -> dict:
         t0 = time.perf_counter()
         rebuilt = rebuild_ec_files(base, device=dev)
         rebuild_s = time.perf_counter() - t0
+        close_window("main_rebuild")
         k1_rebuild = apply_bitmatrix.launches
         check(rebuilt == list(REBUILD_LOST), f"rebuilt {rebuilt}")
         ecc = ShardChecksums.load(base)
@@ -492,44 +766,56 @@ def phase_main_path(torch, dev, args) -> dict:
         ids = sorted(payloads)
         sample = [ids[i] for i in rng.choice(len(ids), min(READS, len(ids)),
                                              replace=False)]
-        lat_degraded, lat_local = [], []
         vol = EcVolume(base, device=dev)
         try:
+            lat_degraded, lat_local = read_pass(vol, sample, payloads)
+            close_window("main_reads")
+            launches = {"rs_bitmatrix": apply_bitmatrix.launches,
+                        "rs_bitmatrix_crc": apply_bitmatrix_crc.launches}
+            by_instantiation = {
+                "rs_bitmatrix": dict(apply_bitmatrix.variant_launches),
+                "rs_bitmatrix_crc": dict(apply_bitmatrix_crc.variant_launches)}
+            log(f"{len(sample)} reads verified, {len(lat_degraded)} degraded; "
+                f"launches {launches}")
+            for name, count in launches.items():
+                check(count > 0, f"{name} never launched on the main path")
+            # The hooks' cost: the degraded reads again, after the counts
+            # were read and outside the counted windows, in each mode.
+            degraded = []
             for nid in sample:
                 before = apply_bitmatrix.launches
-                t0 = time.perf_counter()
-                n = vol.read_needle(nid)
-                dt = time.perf_counter() - t0
-                check(n.data == payloads[nid], f"needle {nid} read back wrong")
-                (lat_degraded if apply_bitmatrix.launches > before
-                 else lat_local).append(dt)
+                vol.read_needle(nid)
+                if apply_bitmatrix.launches > before:
+                    degraded.append(nid)
+
+            def read(nid):
+                check(vol.read_needle(nid).data == payloads[nid],
+                      f"needle {nid} read back wrong")
+
+            cost: dict = {"degraded_read_ms": turns_summary(
+                in_turns(degraded, read, HOOK_ROUNDS), 1e3)}
+            log(f"degraded reads per hook mode, ms: "
+                f"{cost['degraded_read_ms']}")
         finally:
             vol.close()
-        launches = {"rs_bitmatrix": apply_bitmatrix.launches,
-                    "rs_bitmatrix_crc": apply_bitmatrix_crc.launches}
-        log(f"{len(sample)} reads verified, {len(lat_degraded)} degraded; "
-            f"launches {launches}")
-        for name, count in launches.items():
-            check(count > 0, f"{name} never launched on the main path")
+        cost.update(hooks_per_call(torch, dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-
-    def pct(xs, q):
-        return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
 
     return {
         "dat_bytes": dat_size, "needles": len(payloads),
         "reduced": f"volume 30000 MB -> {args.dat_mib} MiB",
+        "shard_bytes": shard_bytes,
         "encode_s": encode_s, "encode_gb_s": dat_size / encode_s / 1e9,
         "rebuild_s": rebuild_s, "rebuild_gb_s": dat_size / rebuild_s / 1e9,
         "reads": len(sample), "degraded_reads": len(lat_degraded),
-        "degraded_read_p50_ms": pct(lat_degraded, 50),
-        "degraded_read_p99_ms": pct(lat_degraded, 99),
-        "local_read_p50_ms": pct(lat_local, 50),
+        "degraded_read_p50_ms": pct_ms(lat_degraded, 50),
+        "degraded_read_p99_ms": pct_ms(lat_degraded, 99),
+        "local_read_p50_ms": pct_ms(lat_local, 50),
+        "hooks_cost": cost,
+        "obs": obs,
         "launches": launches,
-        "launches_by_instantiation": {
-            "rs_bitmatrix": dict(apply_bitmatrix.variant_launches),
-            "rs_bitmatrix_crc": dict(apply_bitmatrix_crc.variant_launches)},
+        "launches_by_instantiation": by_instantiation,
         "launches_by_step": {"encode_rs_bitmatrix_crc": k2_encode,
                              "rebuild_rs_bitmatrix": k1_rebuild,
                              "reads_rs_bitmatrix":
@@ -608,7 +894,7 @@ def phase_batch(torch, dev, args) -> dict:
             max_batch_bytes x (depth + 1)."""
             rec = PipelineRecorder(maxlen=1 << 16)
             reset_counts()
-            torch.cuda.synchronize()
+            before = obs_snapshot(torch)
             torch.cuda.reset_peak_memory_stats(dev)
             base_bytes = torch.cuda.memory_allocated(dev)
             t = time.perf_counter()
@@ -616,6 +902,7 @@ def phase_batch(torch, dev, args) -> dict:
             wall = time.perf_counter() - t
             peak = torch.cuda.max_memory_allocated(dev) - base_bytes
             out[name] = {"wall_s": wall, "launches": read_counts(),
+                         "obs": obs_window(before, obs_snapshot(torch)),
                          "stage_seconds": rec.stage_seconds(),
                          "steps": len({i for _s, i, _a, _b in rec.spans()}),
                          "peak_device_bytes": peak}
@@ -630,6 +917,8 @@ def phase_batch(torch, dev, args) -> dict:
             recorder=rec))
         out["rs_encode"]["gb_s"] = dat_bytes / out["rs_encode"]["wall_s"] / 1e9
         out["rs_encode"]["dat_bytes"] = dat_bytes
+        out["rs_encode"]["shard_bytes"] = sum(
+            os.path.getsize(b + to_ext(0)) for b in bases)
         for base, ref in zip(bases, refs):
             _reference_encode(base, ref, dev, "rs")
             _same_files(base, ref, f"RS volume {os.path.basename(base)}")
@@ -637,6 +926,36 @@ def phase_batch(torch, dev, args) -> dict:
             f"{out['rs_encode']['wall_s']:.3f} s "
             f"({out['rs_encode']['gb_s']:.3f} GB/s): every shard, .ecx, "
             ".vif and .ecc equals write_ec_files's")
+
+        # The hooks' cost: the same group again on links of its .dat/.idx,
+        # outside the counted windows, off and armed in turns, each
+        # without a caller's recorder (armed, the path makes its own).
+        cost: dict = {"off_wall_s": [], "armed_wall_s": []}
+        for turn, mode in enumerate(HOOK_TURNS_BATCH):
+            sub = os.path.join(work, f"rs_hooks{turn}")
+            os.makedirs(sub)
+            copies = [os.path.join(sub, str(i + 1)) for i in range(len(bases))]
+            for base, copy in zip(bases, copies):
+                for ext in (".dat", ".idx"):
+                    os.link(base + ext, copy + ext)
+            # Each turn writes ~2 GB of shards: start every turn with no
+            # dirty pages, or a writeback stall lands on whichever turn
+            # crosses the kernel's dirty threshold.
+            os.sync()
+            with hooks(mode):
+                t = time.perf_counter()
+                batch_encode_files(copies, mesh, max_batch_bytes=BATCH_BYTES,
+                                   codec="rs")
+                wall = time.perf_counter() - t
+            cost[f"{mode}_wall_s"].append(wall)
+            if turn == 0:
+                for copy, ref in zip(copies, refs):
+                    _same_files(copy, ref, f"RS volume "
+                                f"{os.path.basename(copy)}, hooks off")
+            shutil.rmtree(sub)
+        out["rs_encode"]["hooks_cost"] = cost
+        log(f"batched RS encode again: hooks off {cost['off_wall_s']} s, "
+            f"armed {cost['armed_wall_s']} s")
 
         # The same group with the CRC left to the host: K1 with a volume
         # axis, then the .ecc from the written shards.
@@ -684,6 +1003,8 @@ def phase_batch(torch, dev, args) -> dict:
         timed("lrc_encode", lambda rec: batch_encode_files(
             [lrc], mesh, max_batch_bytes=BATCH_BYTES, codec="lrc",
             recorder=rec))
+        out["lrc_encode"]["shard_bytes"] = os.path.getsize(lrc + to_ext(0))
+        out["lrc_vid"] = lrc
         _reference_encode(lrc, lrc_ref, dev, "lrc")
         _same_files(lrc, lrc_ref, "LRC volume")
         codec = get_codec("lrc")
@@ -911,6 +1232,207 @@ def phase_timings(torch, dev, kern: dict, seed: int) -> dict:
             "rs_bitmatrix_crc": entry(k2, k2_plain, k2_lib, k, r, n, True)}
 
 
+def isolated_launch_ms(torch, dev, kern, reps: int = 30) -> dict:
+    """K1 at (10 -> 4, 4 MiB) with the rebuild's decode matrix, one
+    launch at a time, timed by the event pair a ledger row reads
+    (roofline.KernelTimer): median ms with the card kept busy (the
+    launch queued behind a 1 ms torch.cuda._sleep) and after the host
+    idled 0, 1, 10 and 100 ms with the card idle, as a single-volume
+    path leaves it between its coder calls."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import apply_bitmatrix
+    from seaweedfs_tpu_torch.stats import roofline
+    g = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randint(0, 256, (10, KERNEL_N), dtype=torch.uint8,
+                        device=dev, generator=g) for _ in range(4)]
+    out = {}
+    for label, idle, spin in (("busy", 0.01, True), ("idle_0ms", 0, False),
+                              ("idle_1ms", 1e-3, False),
+                              ("idle_10ms", 1e-2, False),
+                              ("idle_100ms", 0.1, False)):
+        ts = []
+        for i in range(reps if idle < 0.1 else reps // 3):
+            torch.cuda.synchronize()
+            time.sleep(idle)
+            if spin:
+                torch.cuda._sleep(int(1e-3 * SLEEP_CYCLES_PER_S))
+            t = roofline.KernelTimer(dev)
+            apply_bitmatrix(kern["decode_masks"], xs[i % 4], timer=t)
+            torch.cuda.synchronize()
+            ts.append(t.seconds() * 1e3)
+        out[label] = float(np.median(ts))
+    log(f"K1 10->4 at 4 MiB alone, ledger pair, median ms: {out}")
+    return out
+
+
+def _window_expectation(name: str, w: dict, main_shard: int, rs_shards: int,
+                        lrc_shard: int) -> tuple[str, dict, dict]:
+    """(catalog key, bytes per EC stage, repair-read bytes per codec) that
+    window `name` must show, from the shard sizes of its volumes: RS reads
+    10 survivors and LRC's local repair 5; a batched step's device stage
+    counts its stacked input, the ledger's bytes without the output rows.
+    A degraded read's bytes are its intervals' reads, which only the
+    repair counter sees: the kernel stage must equal them."""
+    def stacked(key, k_in, k_out):
+        return w["bytes"].get(key, 0) * k_in // (k_in + k_out)
+
+    if name == "main_encode":
+        return "encode_crc_kernel", {"encode_crc_kernel": 10 * main_shard}, {}
+    if name == "main_rebuild":
+        return ("reconstruct_kernel", {"reconstruct_kernel": 10 * main_shard},
+                {"rs": 10 * main_shard})
+    if name in ("main_reads", "lrc_reads"):
+        codec = "rs" if name == "main_reads" else "lrc"
+        got = w["repair"].get(codec, 0)
+        check(got > 0, f"{name}: no repair-read bytes")
+        return "reconstruct_kernel", {"reconstruct_kernel": got}, {codec: got}
+    if name.endswith("encode") or name == "rs_encode_unfused":
+        s = lrc_shard if name == "lrc_encode" else rs_shards
+        return "batch_encode", {
+            "batch_stack": 10 * s, "batch_write": 14 * s,
+            "batch_encode_device": stacked("batch_encode", 10, 4)}, {}
+    if name == "rs_rebuild":
+        return "batch_reconstruct", {
+            "batch_gather": 10 * rs_shards, "batch_scatter": 4 * rs_shards,
+            "batch_rebuild_device": stacked("batch_reconstruct", 10, 4)}, \
+            {"rs": 10 * rs_shards}
+    check(name == "lrc_rebuild", f"no expectation for window {name}")
+    return "batch_reconstruct", {
+        "batch_gather": 5 * lrc_shard, "batch_scatter": lrc_shard,
+        "batch_rebuild_device": stacked("batch_reconstruct", 5, 1)}, \
+        {"lrc": 5 * lrc_shard}
+
+
+def phase_observability(torch, probe: dict, main_path: dict, batch: dict,
+                        timings: dict) -> dict:
+    """Phase 7: the ledger, the stage histograms, the journal and the
+    exposition after phases 4 and 6, held against what those paths
+    launched and moved; the hooks' cost from the turns in each mode."""
+    from seaweedfs_tpu_torch.events import JOURNAL
+    from seaweedfs_tpu_torch.events.journal import events_total
+    from seaweedfs_tpu_torch.fault.registry import faults_injected_total
+    from seaweedfs_tpu_torch.stats import contention, metrics, promcheck
+    from seaweedfs_tpu_torch.stats import roofline
+
+    torch.cuda.synchronize()
+    windows = dict(main_path.pop("obs"))
+    for step in PHASE6_STEPS:
+        windows[step] = batch[step].pop("obs")
+    shard = (main_path["shard_bytes"], batch["rs_encode"]["shard_bytes"],
+             batch["lrc_encode"]["shard_bytes"])
+    seconds: dict = {}  # (kernel, geometry) -> the windows' seconds
+    by_window: dict = {}  # (window, kernel, geometry) -> seconds
+    capped = 0
+    for name, w in windows.items():
+        key, stage_bytes, repair = _window_expectation(name, w, *shard)
+        check(sum(w["rows"].values()) == w["launches"] > 0,
+              f"{name}: {w['rows']} ledger rows for {w['launches']} launches")
+        check(set(w["rows"]) == {key},
+              f"{name}: ledger rows under {sorted(w['rows'])}, not {key}")
+        for stage in EC_STAGES:
+            got, want = w["stage_bytes"].get(stage, 0), stage_bytes.get(stage, 0)
+            check(got == want, f"{name}: stage {stage} counted {got} bytes, "
+                  f"the path moved {want}")
+        check(w["repair"] == repair,
+              f"{name}: repair-read bytes {w['repair']}, expected {repair}")
+        if key in EC_STAGES:
+            check(w["stage_count"].get(key, 0) == w["rows"][key],
+                  f"{name}: {w['stage_count']} stage observations for "
+                  f"{w['rows'][key]} launches")
+        rows = w.pop("_rows")
+        check(len(rows) == w["launches"], f"{name}: ring holds {len(rows)} "
+              f"of the window's {w['launches']} rows")
+        for r in rows:
+            check(r["achieved"] is not None and 0 < r["achieved"] <= 1,
+                  f"{name}: achieved {r['achieved']} in {r}")
+            capped += r["achieved"] == 1.0
+            seconds.setdefault((r["kernel"], r["geometry"]), []).append(
+                r["seconds"])
+            by_window.setdefault((name, r["kernel"], r["geometry"]),
+                                 []).append(r["seconds"])
+
+    table = roofline.LEDGER.kernel_table()
+    ran = {r["kernel"] for r in table if r["count"]}
+    check(ran >= set(PATH_KERNELS), f"ledger ran {sorted(ran)}")
+    # One short row per series (a degraded read's width is a geometry of
+    # its own, so there are hundreds); seconds_p50 over the windows' rows.
+    columns = ("kernel", "codec", "geometry", "count", "seconds_p50",
+               "achieved_p50")
+    compact = []
+    for r in table:
+        s = seconds.get((r["kernel"], r["geometry"]))
+        r["seconds_p50"] = float(np.median(s)) if s else None
+        compact.append([r[c] for c in columns])
+    conservation = roofline.LEDGER.conservation()
+    check(conservation["ok"] and conservation["checked"] > 0,
+          f"conservation {conservation}")
+
+    for m in (metrics.ec_stage_seconds, metrics.ec_stage_bytes,
+              metrics.ec_repair_read_bytes_total,
+              roofline.kernel_seconds_total, roofline.kernel_bytes_total,
+              roofline.kernel_work_total, roofline.device_occupancy,
+              events_total, faults_injected_total,
+              contention.lock_wait_seconds, contention.lock_hold_seconds):
+        metrics.global_registry.register_once(m)
+    text = metrics.global_registry.expose()
+    problems = promcheck.validate_exposition(text)
+    check(not problems, f"exposition fails promcheck: {problems[:5]}")
+
+    docs = roofline.LEDGER.pipelines(64)
+    for kind in ("encode", "rebuild"):
+        check(any(d["kind"] == kind and d["occupancy"]["fraction"] is not None
+                  and "starving_stage" in d["bubbles"] for d in docs),
+              f"no {kind} occupancy doc")
+    lrc_shard = shard[2]
+    repairs = [e["attrs"] for e in JOURNAL.snapshot(type_="ec.repair.local")
+               if e["attrs"].get("vid") == batch["lrc_vid"]]
+    check(repairs == [{"vid": batch["lrc_vid"], "codec": "lrc",
+                       "shard": list(LRC_REBUILD_LOST), "reads": 5,
+                       "bytes": 5 * lrc_shard}],
+          f"ec.repair.local events of the LRC volume: {repairs}")
+
+    def ledger_vs_queued(window, kernel, geometry, kname, key=None):
+        s = by_window.get((window, kernel, geometry))
+        t = timings[kname] if key is None else timings[kname][key]
+        return {"window": window, "geometry": geometry,
+                "ledger_rows": len(s or ()),
+                "ledger_p50_ms": float(np.median(s)) * 1e3 if s else None,
+                "queued_ms": t["ms"]}
+
+    g4 = f"4x10x{KERNEL_N}"
+    out = {
+        "peaks": probe,
+        "kernel_table": {"columns": columns, "rows": compact},
+        "rows_at_achieved_cap": capped,
+        "conservation": conservation,
+        "ledger_vs_phase5": {
+            "k1_10_to_4_4mib": ledger_vs_queued(
+                "main_rebuild", "reconstruct_kernel", g4, "rs_bitmatrix"),
+            "k2_10_to_4_4mib": ledger_vs_queued(
+                "main_encode", "encode_crc_kernel", g4, "rs_bitmatrix_crc"),
+            "k1_batch_4x10x4mib": ledger_vs_queued(
+                "rs_encode_unfused", "batch_encode", g4 + "b4",
+                "rs_bitmatrix", "at_batch_4x10x4mib"),
+            "k2_batch_4x10x4mib": ledger_vs_queued(
+                "rs_encode", "batch_encode", g4 + "b4", "rs_bitmatrix_crc",
+                "at_batch_4x10x4mib")},
+        "occupancy": [{k: d[k] for k in ("kind", "occupancy", "bubbles")}
+                      for d in docs],
+        "device_slow_events": len(JOURNAL.snapshot(type_="device.slow")),
+        "ec_repair_local": repairs,
+        "windows": windows,
+        "exposition_lines": len(text.splitlines()),
+        "locks": contention.totals(),
+        "hooks_cost": {
+            "single_volume": main_path.pop("hooks_cost"),
+            "batched_rs_encode_wall_s": batch["rs_encode"].pop("hooks_cost")},
+    }
+    log(f"observability: {sum(r['count'] for r in table)} ledger rows over "
+        f"{len(table)} series, conservation ok over "
+        f"{conservation['checked']} rows, exposition promcheck-clean, "
+        f"{len(docs)} occupancy docs, LRC ec.repair.local seen")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -942,10 +1464,12 @@ def main() -> int:
         for fn, counts in cuda_build.sass_counts(name).items():
             log(f"sass {name} {fn}: {json.dumps(counts)}")
     check(crc.native_loaded(), "the native CRC32-C library did not load")
+    probe = phase_probe(torch, dev)
 
     kern = phase_kernels(torch, dev, args.seed)
-    main_path = phase_main_path(torch, dev, args)
-    batch = phase_batch(torch, dev, args)
+    with hooks("armed"):
+        main_path = phase_main_path(torch, dev, args)
+        batch = phase_batch(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -977,8 +1501,12 @@ def main() -> int:
              for s in PHASE6_STEPS),
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
+    obs = phase_observability(torch, probe, main_path, batch, timings)
+    obs["ledger_vs_phase5"]["k1_10_to_4_4mib"]["alone_ms"] = \
+        isolated_launch_ms(torch, dev, kern)
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"batch_path": batch}))
+    print(json.dumps({"observability": obs}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

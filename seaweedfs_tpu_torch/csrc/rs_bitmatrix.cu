@@ -147,11 +147,14 @@ cudaError_t launch_fixed(const void* host_words, const uint8_t* in,
 //   2: generic, in_rows <= 16, 3: generic, in_rows <= 32 (dev_masks: the
 //   (8*out_rows, in_rows) uint8 masks on the device).
 // in: (volumes, in_rows, n) uint8; out: (volumes, out_rows, n) uint8.
-// Returns a cudaError_t value (0 = launched).
+// ev_start, ev_end: CUDA events recorded on the stream just before and
+// just after the launch, or null.  Returns a cudaError_t value (0 =
+// launched).
 extern "C" int rs_bitmatrix(int variant, const void* host_words,
                             const void* dev_masks, int out_rows, int in_rows,
                             const void* in, void* out, long long n,
-                            int volumes, int device, void* stream) {
+                            int volumes, int device, void* stream,
+                            void* ev_start, void* ev_end) {
   if (out_rows < 1 || out_rows > 32 || in_rows < 1 || in_rows > 32 ||
       n <= 0 || n % 16 != 0 || volumes < 1 || volumes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -165,27 +168,33 @@ extern "C" int rs_bitmatrix(int variant, const void* host_words,
   auto* dst = static_cast<uint8_t*>(out);
   const auto* m = static_cast<const uint8_t*>(dev_masks);
   const size_t smem = sizeof(uint32_t) * 8 * out_rows * in_rows;
+  err = rsbm::record_event(ev_start, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaErrorInvalidValue;
   switch (variant) {
     case 0:
       if (in_rows != 10 || out_rows != 4 || host_words == nullptr) break;
-      return static_cast<int>(
-          launch_fixed<4, 10>(host_words, src, dst, n, blocks, st));
+      err = launch_fixed<4, 10>(host_words, src, dst, n, blocks, st);
+      break;
     case 1:
       if (in_rows != 10 || out_rows != 1 || host_words == nullptr) break;
-      return static_cast<int>(
-          launch_fixed<1, 10>(host_words, src, dst, n, blocks, st));
+      err = launch_fixed<1, 10>(host_words, src, dst, n, blocks, st);
+      break;
     case 2:
       if (in_rows > 16 || m == nullptr) break;
       rs_generic<16, 2><<<blocks, kThreads, smem, st>>>(m, out_rows, in_rows,
                                                         src, dst, n);
-      return static_cast<int>(cudaGetLastError());
+      err = cudaGetLastError();
+      break;
     case 3:
       if (m == nullptr) break;
       rs_generic<32, 1><<<blocks, kThreads, smem, st>>>(m, out_rows, in_rows,
                                                         src, dst, n);
-      return static_cast<int>(cudaGetLastError());
+      err = cudaGetLastError();
+      break;
     default:
       break;
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (err == cudaSuccess) err = rsbm::record_event(ev_end, st);
+  return static_cast<int>(err);
 }

@@ -206,4 +206,13 @@ __device__ __forceinline__ void mix_shared(const uint32_t* smask,
   }
 }
 
+// Records the caller's CUDA event `ev` (a cudaEvent_t, or null for none)
+// on `st`.  The launchers record a timing pair right around the kernel
+// launch, so that the pair brackets the kernel and not the host's path
+// to the launch (the roofline plane's KernelTimer reads it).
+inline cudaError_t record_event(void* ev, cudaStream_t st) {
+  return ev == nullptr ? cudaSuccess
+                       : cudaEventRecord(static_cast<cudaEvent_t>(ev), st);
+}
+
 }  // namespace rsbm

@@ -340,7 +340,8 @@ cudaError_t resident_blocks(Kernel kernel, size_t smem, int device,
 
 template <int OUT, int IN, bool kVolumes>
 cudaError_t launch_crc_fixed(const void* host_words, const CrcArgs& a,
-                             int device, long long needed, cudaStream_t st) {
+                             int device, long long needed, cudaStream_t st,
+                             void* ev_start) {
   const size_t smem = smem_bytes(IN + OUT);
   unsigned blocks = 0;
   cudaError_t err = resident_blocks(rs_crc_fixed<OUT, IN, kVolumes>, smem,
@@ -348,6 +349,8 @@ cudaError_t launch_crc_fixed(const void* host_words, const CrcArgs& a,
   if (err != cudaSuccess) return err;
   rsbm::MaskWords<OUT, IN> m;
   std::memcpy(m.w, host_words, sizeof(m.w));
+  err = rsbm::record_event(ev_start, st);
+  if (err != cudaSuccess) return err;
   rs_crc_fixed<OUT, IN, kVolumes><<<blocks, kThreads, smem, st>>>(m, a);
   return cudaGetLastError();
 }
@@ -361,8 +364,9 @@ cudaError_t launch_crc_fixed(const void* host_words, const CrcArgs& a,
 // in: (volumes, in_rows, n) uint8; out: (volumes, out_rows, n) uint8;
 // byte_table: (256,) words; shift_tables: (5, 4, 256) words (Z^64, Z^256,
 // Z^512, Z^1024, Z^2048); pos_cols: (tpb*32,) words; partials: (volumes,
-// in_rows+out_rows, n/4096) words.  Returns a cudaError_t value (0 =
-// launched).
+// in_rows+out_rows, n/4096) words.  ev_start, ev_end: CUDA events
+// recorded on the stream just before and just after the launch, or null.
+// Returns a cudaError_t value (0 = launched).
 extern "C" int rs_bitmatrix_crc(int variant, const void* host_words,
                                 const void* dev_masks, int out_rows,
                                 int in_rows, const void* in, void* out,
@@ -370,7 +374,8 @@ extern "C" int rs_bitmatrix_crc(int variant, const void* host_words,
                                 const void* byte_table,
                                 const void* shift_tables,
                                 const void* pos_cols, int tpb, void* partials,
-                                int device, void* stream) {
+                                int device, void* stream, void* ev_start,
+                                void* ev_end) {
   if (out_rows < 1 || out_rows > 16 || in_rows < 1 || in_rows > 16 ||
       n <= 0 || n % kTile != 0 || tpb < 1 || volumes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -385,20 +390,23 @@ extern "C" int rs_bitmatrix_crc(int variant, const void* host_words,
                   static_cast<const uint32_t*>(pos_cols), tpb,
                   static_cast<uint32_t*>(partials)};
   if (variant == 0 && in_rows == 10 && out_rows == 4 && host_words != nullptr) {
-    return static_cast<int>(
-        volumes == 1
-            ? launch_crc_fixed<4, 10, false>(host_words, a, device, needed, st)
-            : launch_crc_fixed<4, 10, true>(host_words, a, device, needed,
-                                            st));
-  }
-  unsigned blocks = 0;
-  if (variant == 1 && dev_masks != nullptr) {
+    err = volumes == 1 ? launch_crc_fixed<4, 10, false>(host_words, a, device,
+                                                        needed, st, ev_start)
+                       : launch_crc_fixed<4, 10, true>(host_words, a, device,
+                                                       needed, st, ev_start);
+  } else if (variant == 1 && dev_masks != nullptr) {
     const size_t smem = smem_bytes(kMaxRows) + sizeof(uint32_t) * 8 * 16 * 16;
+    unsigned blocks = 0;
     err = resident_blocks(rs_crc_generic, smem, device, needed, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = rsbm::record_event(ev_start, st);
     if (err != cudaSuccess) return static_cast<int>(err);
     rs_crc_generic<<<blocks, kThreads, smem, st>>>(
         static_cast<const uint8_t*>(dev_masks), out_rows, in_rows, a);
-    return static_cast<int>(cudaGetLastError());
+    err = cudaGetLastError();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (err == cudaSuccess) err = rsbm::record_event(ev_end, st);
+  return static_cast<int>(err);
 }

@@ -6,11 +6,15 @@ the `.dat` size from the `.ecx`, and the interleaved copy back.
 
 from __future__ import annotations
 
+import time
+
 from . import DATA_SHARDS, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, to_ext
 from ..core import idx as idx_mod
 from ..core import types as t
 from ..core.needle import get_actual_size
 from ..core.super_block import SuperBlock
+from ..stats.metrics import observe_ec_stage
+from ..trace import span as trace_span
 
 
 def read_ec_volume_version(base_file_name: str) -> int:
@@ -35,7 +39,20 @@ def find_dat_file_size(base_file_name: str) -> int:
 def write_dat_file(base_file_name: str, dat_file_size: int,
                    large_block_size: int = LARGE_BLOCK_SIZE,
                    small_block_size: int = SMALL_BLOCK_SIZE) -> None:
-    """Interleave-copy .ec00-.ec09 back into a .dat of the given size."""
+    """Interleave-copy .ec00-.ec09 back into a .dat of the given size,
+    timed into the EC stage histogram as `dat_rebuild` and spanned on a
+    trace as `ec.dat_rebuild`."""
+    t0 = time.perf_counter()
+    with trace_span("ec.dat_rebuild", bytes=dat_file_size):
+        _write_dat_file(base_file_name, dat_file_size,
+                        large_block_size, small_block_size)
+    observe_ec_stage("dat_rebuild", time.perf_counter() - t0,
+                     dat_file_size)
+
+
+def _write_dat_file(base_file_name: str, dat_file_size: int,
+                    large_block_size: int,
+                    small_block_size: int) -> None:
     ins = [open(base_file_name + to_ext(i), "rb")
            for i in range(DATA_SHARDS)]
     try:

@@ -27,8 +27,10 @@ from . import DATA_SHARDS, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, to_ext
 from .integrity import BlockCrcAccumulator, ShardChecksums, ecc_lock
 from .volume_info import ec_codec_name, update_volume_info
 from ..codecs import get_codec
+from ..fault import registry as _fault
 from ..ops.crc_fold import FusedCrcAccumulator, fused_crc_enabled
 from ..ops.erasure import ErasureCoder, host_array, new_coder
+from ..stats.metrics import ec_repair_read_bytes_total
 from ..storage.needle_map import MemDb
 
 # Per-shard contiguous bytes handed to one coder call. Must divide
@@ -46,10 +48,19 @@ def write_sorted_file_from_idx(base_file_name: str,
 
 
 def _shard_write(f, sid: int, buf: bytes, accs) -> None:
-    """One shard-file write, feeding the integrity accumulator first so
-    the recorded `.ecc` checksums describe the intended bytes."""
+    """One shard-file write: feed the integrity accumulator with the
+    TRUE bytes first, then write — possibly through the volume.corrupt
+    bit-rot injector — so the recorded `.ecc` checksums describe what
+    the encoder intended and any on-disk divergence is detectable."""
     if accs is not None:
         accs[sid].feed(buf)
+    if _fault.ARMED and buf:
+        try:
+            _fault.hit("volume.corrupt", shard=sid)
+        except _fault.FaultInjected:
+            b = bytearray(buf)
+            b[0] ^= 0xFF
+            buf = bytes(b)
     f.write(buf)
 
 
@@ -330,6 +341,8 @@ def rebuild_ec_files(base_file_name: str,
                 if len(buf) != take:
                     raise ValueError(f"short read on shard {sid}")
                 have[sid] = np.frombuffer(buf, dtype=np.uint8)
+            ec_repair_read_bytes_total.inc(take * len(have),
+                                           codec=cd.name)
             rec = coder.reconstruct(have, wanted=missing)
             for sid in missing:
                 _shard_write(outs[sid], sid,

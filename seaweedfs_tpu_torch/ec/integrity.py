@@ -21,17 +21,22 @@ import threading
 
 from . import SMALL_BLOCK_SIZE
 from ..core.crc import crc32c
+from ..stats.contention import MeteredLock
 
 # Sidecar updates are load-modify-save: every writer must serialize per
-# volume base or concurrent savers lose each other's entries.
-_ECC_LOCKS: dict[str, threading.Lock] = {}
+# volume base or concurrent savers lose each other's entries.  Metered
+# (stats/contention.py) under one shared label for every volume's lock,
+# SeaweedFS_lock_wait_seconds{lock="integrity.ecc"}, so cardinality
+# stays flat.
+_ECC_LOCKS: dict[str, MeteredLock] = {}
 _ECC_LOCKS_GUARD = threading.Lock()
 
 
-def ecc_lock(base_file_name: str) -> threading.Lock:
+def ecc_lock(base_file_name: str) -> MeteredLock:
     """The process-wide lock guarding one volume's `.ecc` sidecar."""
     with _ECC_LOCKS_GUARD:
-        return _ECC_LOCKS.setdefault(base_file_name, threading.Lock())
+        return _ECC_LOCKS.setdefault(base_file_name,
+                                     MeteredLock("integrity.ecc"))
 
 
 # Checksum granularity: one CRC per small-block row keeps the sidecar

@@ -23,6 +23,7 @@ from ..codecs import get_codec
 from ..core import types as t
 from ..core.needle import Needle, get_actual_size
 from ..ops.erasure import ErasureCoder, host_array, new_coder
+from ..stats.metrics import ec_repair_read_bytes_total
 from .locate import Interval, locate_data
 from .volume_info import ec_codec_name
 
@@ -201,6 +202,8 @@ class EcVolume:
                 have[sid] = np.frombuffer(buf, dtype=np.uint8)
             if len(have) == len(plan[0].reads):
                 break
+        ec_repair_read_bytes_total.inc(size * len(have),
+                                       codec=self.codec.name)
         rec = self.coder.reconstruct(have, wanted=[missing_sid])
         return host_array(rec[missing_sid]).tobytes()
 

@@ -34,17 +34,30 @@ device.  K2's plain version takes the CRC constants of
 `crc_fold.CrcFoldTables` packed into 32-bit words (`pack_crc_tables`);
 the kernel reads the byte-table form of the same function
 (`pack_crc_kernel_tables`), built once per device.
+
+`CudaCoder` reports each launch as the JAX package's coder does: the
+`SeaweedFS_ec_stage_*` histograms under the stage names encode_kernel,
+encode_crc_kernel and reconstruct_kernel (SEAWEEDFS_TPU_EC_PROF=0 turns
+the timing off), and a roofline ledger row while `roofline.ARMED`.  The
+seconds are the device time of a pooled CUDA event pair that the C
+launcher records on the stream right before and right after the kernel,
+read once the launch has finished (`stats/roofline.py` KernelTimer), so
+no call waits for the card; on the CPU, the host time of the plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import threading
 
 import numpy as np
 import torch
 
+from ..stats import roofline as _roofline
+from ..stats.metrics import observe_ec_stage
 from . import crc_fold
 from .erasure import host_array, resolve_device
 
@@ -279,13 +292,15 @@ _ARGTYPES = {
     "rs_bitmatrix": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p],
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_void_p],
     "rs_bitmatrix_crc": [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_void_p,
                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p, ctypes.c_void_p],
 }
 
 
@@ -356,16 +371,37 @@ def _kernel_masks(masks: torch.Tensor, specialised: bool, device
     return None, masks.to(device, non_blocking=True)
 
 
-def apply_bitmatrix(masks: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
+def _timed(timer, fn, *args):
+    """A plain version's fn(*args) between timer.start() and
+    timer.end(), when timed."""
+    if timer is None:
+        return fn(*args)
+    timer.start()
+    out = fn(*args)
+    timer.end()
+    return out
+
+
+def _events(timer) -> tuple:
+    """The (start, end) CUDA events a launcher records right around
+    its launch: the timer's pair, or none."""
+    return (None, None) if timer is None else timer.events()
+
+
+def apply_bitmatrix(masks: torch.Tensor, shards: torch.Tensor,
+                    timer=None) -> torch.Tensor:
     """(8r, k) packed masks x (k, n) uint8 shards -> (r, n) uint8, or
     (V, k, n) -> (V, r, n) for V volumes in one launch.
 
     A CUDA tensor launches K1 (n a multiple of 16, k and r <= 32, masks
     on the host) in the instantiation `k1_variant` picks; a CPU tensor
-    runs apply_bitmatrix_torch."""
+    runs apply_bitmatrix_torch.  A `roofline.KernelTimer` passed as
+    `timer` times the launch: the launcher records its event pair on the
+    stream just before and just after the kernel (on the CPU, the host
+    clock around the plain version)."""
     volumes, in_rows, out_rows, n = _check_mix(masks, shards)
     if shards.device.type == "cpu":
-        return apply_bitmatrix_torch(masks, shards)
+        return _timed(timer, apply_bitmatrix_torch, masks, shards)
     _check_cuda(shards.device, shards=shards)
     if out_rows > 32 or in_rows > 32 or n % 16:
         raise ValueError(f"K1 takes <= 32 rows in and out and n % 16 == 0, "
@@ -380,7 +416,8 @@ def apply_bitmatrix(masks: torch.Tensor, shards: torch.Tensor) -> torch.Tensor:
         None if dev_masks is None else dev_masks.data_ptr(), out_rows,
         in_rows, shards.data_ptr(), out.data_ptr(), n, volumes,
         shards.device.index,
-        torch.cuda.current_stream(shards.device).cuda_stream)
+        torch.cuda.current_stream(shards.device).cuda_stream,
+        *_events(timer))
     _check_launch("rs_bitmatrix", rc)
     _count(apply_bitmatrix, K1_VARIANTS, variant, volumes)
     return out
@@ -393,7 +430,7 @@ apply_bitmatrix.volume_launches = 0
 
 def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
                         w0: torch.Tensor, plane_cols: torch.Tensor,
-                        pos_cols: torch.Tensor
+                        pos_cols: torch.Tensor, timer=None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """K1 plus fused `.ecc` CRC32-C tile partials: returns (parity
     (r, n) uint8, partials (k + r, n // 4096) int32 — the uint32 words
@@ -405,11 +442,12 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
     masks on the host, each volume starting on an `.ecc` block boundary)
     in the instantiation `k2_variant` picks; it reads pos_cols and the
     device's `pack_crc_kernel_tables`, and w0 and plane_cols only set
-    the tile.  A CPU tensor runs apply_bitmatrix_crc_torch."""
+    the tile.  A CPU tensor runs apply_bitmatrix_crc_torch.  `timer` as
+    for apply_bitmatrix."""
     volumes, in_rows, out_rows, n = _check_mix(masks, shards)
     if shards.device.type == "cpu":
-        return apply_bitmatrix_crc_torch(masks, shards, w0, plane_cols,
-                                         pos_cols)
+        return _timed(timer, apply_bitmatrix_crc_torch, masks, shards, w0,
+                      plane_cols, pos_cols)
     _check_cuda(shards.device, shards=shards, pos_cols=pos_cols)
     if w0.shape[0] != BLOCK_N or plane_cols.shape[0] != 8 * 32 \
             or pos_cols.shape[0] % 32:
@@ -432,7 +470,8 @@ def apply_bitmatrix_crc(masks: torch.Tensor, shards: torch.Tensor,
         in_rows, shards.data_ptr(), parity.data_ptr(), n, volumes,
         byte_table.data_ptr(), shifts.data_ptr(), pos_cols.data_ptr(),
         pos_cols.shape[0] // 32, partials.data_ptr(), shards.device.index,
-        torch.cuda.current_stream(shards.device).cuda_stream)
+        torch.cuda.current_stream(shards.device).cuda_stream,
+        *_events(timer))
     _check_launch("rs_bitmatrix_crc", rc)
     _count(apply_bitmatrix_crc, K2_VARIANTS, variant, volumes)
     return parity, partials
@@ -446,6 +485,28 @@ apply_bitmatrix_crc.volume_launches = 0
 # ---------------------------------------------------------------------------
 # The coder
 # ---------------------------------------------------------------------------
+
+def _record_roofline(kernel: str, coder, *, out_rows: int,
+                     in_rows: int, n: int, crc: bool,
+                     seconds: float, measured_bytes: int) -> None:
+    """Feed one timed kernel launch into the roofline ledger.
+    Accounting must never take the encode path down; the ARMED check
+    stays at the call site so the disarmed cost is one flag read."""
+    try:
+        _roofline.LEDGER.record(
+            kernel, coder.codec.name, "int8", out_rows=out_rows,
+            in_rows=in_rows, n=n, crc=crc, seconds=seconds,
+            measured_bytes=measured_bytes, device=coder.device)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _prof_on() -> bool:
+    """Per-stage kernel-time histograms (SEAWEEDFS_TPU_EC_PROF=0 to
+    disable, as for seaweedfs_tpu)."""
+    return os.environ.get("SEAWEEDFS_TPU_EC_PROF", "1") \
+        not in ("0", "false")
+
 
 # Decode-matrix cache bound per coder (one entry per survivor set and
 # wanted list); overflow clears, as the codec caches do.
@@ -536,19 +597,44 @@ class CudaCoder:
         its shard files (the encoder's chunks do).
         """
         x, n = self._data(data)
-        parity, partials = apply_bitmatrix_crc(self._parity_masks, x,
-                                               *self._crc_tables())
+        parity, partials = self._launch(
+            "encode_crc_kernel", apply_bitmatrix_crc, self._parity_masks, x,
+            *self._crc_tables(), n=n, crc=True)
         return parity[:, :n], partials
 
     def encode(self, data) -> torch.Tensor:
         """(data_shards, n) uint8 -> (parity_shards, n) uint8."""
         x, n = self._data(data)
-        return apply_bitmatrix(self._parity_masks, x)[:, :n]
+        return self._launch("encode_kernel", apply_bitmatrix,
+                            self._parity_masks, x, n=n)[:, :n]
 
     def encode_all(self, data) -> torch.Tensor:
         x, n = self._data(data)
-        parity = apply_bitmatrix(self._parity_masks, x)
+        parity = self._launch("encode_kernel", apply_bitmatrix,
+                              self._parity_masks, x, n=n)
         return torch.cat([x, parity])[:, :n]
+
+    def _launch(self, stage: str, kernel, masks: torch.Tensor,
+                x: torch.Tensor, *tables, n: int, crc: bool = False):
+        """kernel(masks, x, *tables), reported under `stage` for the
+        caller's width `n` (not the padded width the kernel takes)."""
+        if not _prof_on():
+            return kernel(masks, x, *tables)
+        _roofline.settle()
+        timer = _roofline.KernelTimer(x.device)
+        out = kernel(masks, x, *tables, timer=timer)
+        timer.then(functools.partial(
+            self._account, stage, _roofline.ARMED, masks.shape[0] // 8,
+            x.shape[0], n, crc))
+        return out
+
+    def _account(self, stage: str, armed: bool, out_rows: int,
+                 in_rows: int, n: int, crc: bool, seconds: float) -> None:
+        observe_ec_stage(stage, seconds, in_rows * n)
+        if armed:
+            _record_roofline(stage, self, out_rows=out_rows, in_rows=in_rows,
+                             n=n, crc=crc, seconds=seconds,
+                             measured_bytes=(in_rows + out_rows) * n)
 
     def _decode_masks(self, present: tuple[int, ...],
                       wanted: tuple[int, ...]
@@ -584,11 +670,13 @@ class CudaCoder:
             return {}
         masks, used = self._decode_masks(present, tuple(wanted))
         x, n = self._device_rows([shards[s] for s in used])
-        rec = apply_bitmatrix(masks, x)[:, :n]
+        rec = self._launch("reconstruct_kernel", apply_bitmatrix, masks, x,
+                           n=n)[:, :n]
         return {w: rec[i] for i, w in enumerate(wanted)}
 
     def verify(self, shards) -> bool:
         """shards: (total, n). True iff parity rows match the data rows."""
         x, n = self._device_rows(list(shards))
-        parity = apply_bitmatrix(self._parity_masks, x[: self.data_shards])
+        parity = self._launch("encode_kernel", apply_bitmatrix,
+                              self._parity_masks, x[: self.data_shards], n=n)
         return bool(torch.equal(parity[:, :n], x[self.data_shards:, :n]))

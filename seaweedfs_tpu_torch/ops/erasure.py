@@ -30,6 +30,8 @@ from typing import Protocol
 import numpy as np
 import torch
 
+from ..stats import roofline
+
 
 class ErasureCoder(Protocol):
     data_shards: int
@@ -63,9 +65,14 @@ def resolve_device(device) -> torch.device:
 
 
 def host_array(x) -> np.ndarray:
-    """A coder result (tensor on any device, or numpy) as a host array."""
+    """A coder result (tensor on any device, or numpy) as a host array.
+    The copy waits for the launches before it on the result's stream,
+    so their roofline timings are settled here too."""
     if isinstance(x, torch.Tensor):
-        return x.cpu().numpy()
+        out = x.cpu().numpy()
+        if x.device.type == "cuda":
+            roofline.settle()
+        return out
     return np.asarray(x)
 
 

@@ -21,6 +21,12 @@ drain thread waits for that step's event and appends the shard files.
 Each volume's chunk sequence is the local encoder's `_chunk_reader`, so
 every shard, `.ecx`, `.vif` and `.ecc` is byte-identical to
 `write_ec_files`.
+
+The stages report as the JAX package's do: `batch_stack`,
+`batch_encode_device` and `batch_write` in the `SeaweedFS_ec_stage_*`
+histograms (host clock), one `batch_encode` roofline row per step with
+the step's kernel time, and, while `roofline.ARMED`, the run's
+`PipelineRecorder` folded into the ledger's occupancy docs.
 """
 
 from __future__ import annotations
@@ -40,9 +46,11 @@ from ..ec.encoder import (DEFAULT_CHUNK, _chunk_reader,
 from ..ec.integrity import ShardChecksums, ecc_lock, file_block_crcs
 from ..ec.volume_info import update_volume_info
 from ..ops.crc_fold import fused_crc_enabled
+from ..stats import roofline as _roofline
+from ..stats.metrics import observe_batch_stage
 from .cluster_rebuild import _pad_to
 from .mesh import Mesh, make_mesh
-from .sharded_codec import encode_step
+from .sharded_codec import encode_step, record_fenced_batch
 from .stream_pipeline import PipelineRecorder, run_pipeline
 
 # Column padding granularity without fused CRC: a multiple of K1's
@@ -204,7 +212,10 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
     every volume's shard files, `.ecx` and `.vif`.  Returns each volume's
     per-shard `.ecc` block CRCs from the device (fused CRC), or None when
     the CRCs were not fused (the caller then checksums the shard files).
-    `recorder` collects the stack, dispatch, device and drain spans."""
+    `recorder` collects the stack, dispatch, device and drain spans;
+    without one, a bounded recorder is made while `roofline.ARMED`.
+    Armed, the recorder is folded into `roofline.LEDGER.note_pipeline`
+    as "encode"."""
     vol_axis = mesh.shape["vol"]
     col_axis = mesh.shape["col"]
     on_cuda = mesh_on_cuda(mesh)
@@ -227,6 +238,9 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
                           on_cuda, cancel=cancel)
     streams = side_streams(mesh)
     rec = recorder
+    if rec is None and _roofline.ARMED:
+        rec = PipelineRecorder(maxlen=1024)
+    stages: dict = {}
     try:
         iters = [
             _chunk_reader(d, os.path.getsize(b + ".dat"),
@@ -255,6 +269,7 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
                 t_wait0 = time.perf_counter()
                 buf = buffers.acquire()
                 t_wait1 = time.perf_counter()
+                t_wait = t_wait1 - t_wait0
                 stacked = buf[:v_pad * DATA_SHARDS * n_pad].view(
                     v_pad, DATA_SHARDS, n_pad)
                 view = stacked.numpy()
@@ -263,6 +278,9 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
                     view[j, :, c.shape[1]:] = 0
                 view[len(chunks):] = 0
                 t_end = time.perf_counter()
+                observe_batch_stage(stages, "batch_stack",
+                                    t_end - t_stack - t_wait,
+                                    sum(widths) * DATA_SHARDS)
                 if rec is not None:
                     rec.note_span("stack", bi, t_stack, t_wait0)
                     rec.note_span("stack", bi, t_wait1, t_end)
@@ -283,29 +301,52 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
 
         def drain(handle):
             buf, stacked, step, active, widths, bi, t_d1 = handle
+            # The exposed device + copy wait: with the pipeline
+            # overlapping, its per-batch sum exceeds its share of the wall.
+            t_dev = time.perf_counter()
             step.wait()
             parity = step.host_out()
             crcs = step.host_crcs() if fused else None
             t_fence = time.perf_counter()
+            observe_batch_stage(stages, "batch_encode_device",
+                                t_fence - t_dev, stacked.nbytes)
             if rec is not None:
                 # Device busy is seen only as [dispatch end, event done]:
                 # it includes queueing, an upper bound on kernel time.
                 rec.note_span("device", bi, t_d1, t_fence)
+            if _roofline.ARMED:
+                seconds = step.kernel_seconds()
+                if seconds is not None:
+                    record_fenced_batch(
+                        "batch_encode", codec.name,
+                        out_rows=int(parity.shape[1]),
+                        in_rows=DATA_SHARDS, n=int(parity.shape[2]),
+                        batch=int(parity.shape[0]), crc=crcs is not None,
+                        seconds=seconds,
+                        measured_bytes=int(stacked.nbytes) + parity.nbytes,
+                        device=mesh.device_list()[0])
+            t_wr = time.perf_counter()
+            written = 0
             data = stacked.numpy()
             for j, v in enumerate(active):
                 w = widths[j]
                 writers[v].write(data[j, :, :w], parity[j, :, :w])
+                written += w * (DATA_SHARDS + parity.shape[1])
                 if crcs is not None:
                     nb = w // SMALL_BLOCK_SIZE
                     for sid in range(codec.total_shards):
                         vol_crcs[v][sid].extend(
                             int(c) for c in crcs[j, sid, :nb])
+            t_wr1 = time.perf_counter()
+            observe_batch_stage(stages, "batch_write", t_wr1 - t_wr, written)
             if rec is not None:
-                rec.note_span("drain", bi, t_fence, time.perf_counter())
+                rec.note_span("drain", bi, t_fence, t_wr1)
             buffers.release(buf)
 
         run_pipeline(produce(), dispatch, drain, depth=depth,
                      cancel=cancel, recorder=rec)
+        if rec is not None and _roofline.ARMED:
+            _roofline.LEDGER.note_pipeline("encode", rec)
     finally:
         for d in dats:
             d.close()

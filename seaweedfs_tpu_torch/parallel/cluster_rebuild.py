@@ -20,6 +20,14 @@ beside each base, reads survivor shard files and writes rebuilt shards
 and their `.ecc` entries.  Fetching survivors from their holders and
 scattering the rebuilt shards plug into `rebuild_group` in the cluster
 layer.
+
+The stages report as the JAX package's do: `batch_gather`,
+`batch_rebuild_device` and `batch_scatter` (the placement) in the
+`SeaweedFS_ec_stage_*` histograms, the gathered survivor bytes in
+`SeaweedFS_ec_repair_read_bytes_total`, one `batch_reconstruct` roofline
+row per step with its kernel time, the recorder in the ledger's
+occupancy docs while `roofline.ARMED`, and an `ec.repair.local` event
+per volume when every lost shard was repaired inside its locality group.
 """
 
 from __future__ import annotations
@@ -34,9 +42,12 @@ from ..codecs import Codec, get_codec
 from ..ec import SMALL_BLOCK_SIZE, to_ext
 from ..ec.integrity import ShardChecksums, ecc_lock, file_block_crcs
 from ..ec.volume_info import ec_codec_name
+from ..events import emit as emit_event
 from ..ops.crc_fold import fused_crc_enabled
+from ..stats import roofline as _roofline
+from ..stats.metrics import ec_repair_read_bytes_total, observe_batch_stage
 from .mesh import Mesh, make_mesh
-from .sharded_codec import reconstruct_step
+from .sharded_codec import reconstruct_step, record_fenced_batch
 from .stream_pipeline import PipelineRecorder, run_pipeline
 
 # Column padding granularity without fused CRC (see cluster_encode).
@@ -74,10 +85,16 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
     """Streamed rebuild of one survivor-signature group: the producer
     gathers and stacks the next sub-batch while the device decodes the
     current one and the drain thread places the completed shards.
-    Returns one line per volume."""
+    `recorder` collects the stage spans; without one, a bounded recorder
+    is made while `roofline.ARMED`, and armed, it is folded into
+    `roofline.LEDGER.note_pipeline` as "rebuild".  Returns one line per
+    volume."""
     from .cluster_encode import (device_streams, mesh_on_cuda,
                                  pipeline_depth, side_streams)
     present, missing = tuple(present), tuple(missing)
+    report = plan_repair_reads(codec, present, missing)
+    all_local = bool(report["local_repairs"]) and \
+        report["local_repairs"] == len(missing)
     # The codec's planned read set, not "first data_shards survivors":
     # an in-group LRC loss gathers 5 shards per volume instead of 10.
     _mat, used = codec.decode_matrix(present, missing)
@@ -92,6 +109,9 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
     depth = pipeline_depth(depth)
     streams = side_streams(mesh)
     rec = recorder
+    if rec is None and _roofline.ARMED:
+        rec = PipelineRecorder(maxlen=1024)
+    stages: dict = {}
     out: list[str] = []
     saved = f" ({codec.name}: read {len(used)} shards vs " \
             f"{codec.data_shards} for RS)" \
@@ -109,6 +129,8 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
                                  int(max_batch_bytes // max(per_vol, 1))))
             chunk = vids[i:i + chunk_v]
             fetched = [rows0] + [fetch_rows(vid, used) for vid in chunk[1:]]
+            gathered = sum(len(row) for rows in fetched for row in rows)
+            ec_repair_read_bytes_total.inc(gathered, codec=codec.name)
             sizes = [len(rows[0]) for rows in fetched]
             n_pad = _pad_to(max(sizes), align)
             v_pad = _pad_to(len(chunk), vol_axis)
@@ -122,8 +144,11 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
                             f"volume {chunk[v]}: survivor shards disagree "
                             f"on size ({len(row)} vs {sizes[v]})")
                     view[v, r, :len(row)] = np.frombuffer(row, np.uint8)
+            t_gend = time.perf_counter()
+            observe_batch_stage(stages, "batch_gather", t_gend - t_gather,
+                                gathered)
             if rec is not None:
-                rec.note_span("stack", bi, t_gather, time.perf_counter())
+                rec.note_span("stack", bi, t_gather, t_gend)
             yield stacked, chunk, sizes, bi
             bi += 1
             i += chunk_v
@@ -142,16 +167,31 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
         t_d1 = time.perf_counter()
         if rec is not None:
             rec.note_span("dispatch", bi, t_d0, t_d1)
-        return step, use_crc, chunk, sizes, bi, t_d1
+        return step, use_crc, chunk, sizes, stacked.nbytes, bi, t_d1
 
     def drain(handle):
-        step, use_crc, chunk, sizes, bi, t_d1 = handle
+        step, use_crc, chunk, sizes, nbytes, bi, t_d1 = handle
+        t_dev = time.perf_counter()
         step.wait()
         rebuilt = step.host_out()
         crcs = step.host_crcs() if use_crc else None
         t_fence = time.perf_counter()
+        observe_batch_stage(stages, "batch_rebuild_device", t_fence - t_dev,
+                            nbytes)
         if rec is not None:
             rec.note_span("device", bi, t_d1, t_fence)
+        if _roofline.ARMED:
+            seconds = step.kernel_seconds()
+            if seconds is not None:
+                record_fenced_batch(
+                    "batch_reconstruct", codec.name,
+                    out_rows=int(rebuilt.shape[1]), in_rows=len(used),
+                    n=int(rebuilt.shape[2]), batch=int(rebuilt.shape[0]),
+                    crc=crcs is not None, seconds=seconds,
+                    measured_bytes=int(nbytes) + rebuilt.nbytes,
+                    device=mesh.device_list()[0])
+        t_scatter = time.perf_counter()
+        scattered = 0
         for v, vid in enumerate(chunk):
             shards = [rebuilt[v, m, :sizes[v]] for m in range(len(missing))]
             shard_crcs = None
@@ -159,13 +199,23 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
                 nb = sizes[v] // block
                 shard_crcs = [[int(c) for c in crcs[v, m, :nb]]
                               for m in range(len(missing))]
+            scattered += sizes[v] * len(missing)
             place(vid, missing, shards, shard_crcs)
+            if all_local:
+                emit_event("ec.repair.local", vid=vid, codec=codec.name,
+                           shard=list(missing), reads=len(used),
+                           bytes=sizes[v] * len(used))
             out.append(f"volume {vid}: rebuilt shards {list(missing)}"
                        + saved)
+        t_send = time.perf_counter()
+        observe_batch_stage(stages, "batch_scatter", t_send - t_scatter,
+                            scattered)
         if rec is not None:
-            rec.note_span("drain", bi, t_fence, time.perf_counter())
+            rec.note_span("drain", bi, t_scatter, t_send)
 
     run_pipeline(produce(), dispatch, drain, depth=depth, recorder=rec)
+    if rec is not None and _roofline.ARMED:
+        _roofline.LEDGER.note_pipeline("rebuild", rec)
     return out
 
 

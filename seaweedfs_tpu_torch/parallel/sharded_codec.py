@@ -30,6 +30,12 @@ the partials only.  `encode_step` and `reconstruct_step` expose the
 device half for the stream pipeline, which copies the results to pinned
 host memory on its own CUDA stream and waits for an event instead.
 
+While `roofline.ARMED`, each launch of a step is bracketed by a
+`roofline.KernelTimer` (a CUDA event pair on the launching stream);
+`Step.kernel_seconds` reads them once `Step.wait` has seen the step's
+copies done, and the pipelines of `cluster_encode`/`cluster_rebuild`
+hand that to `record_fenced_batch`.
+
 The multi-card collectives (`all_to_all_reconstruct`,
 `ring_reconstruct`) have no counterpart here yet.
 """
@@ -45,11 +51,39 @@ from ..ops import crc_fold
 from ..ops.coder_cuda import (BLOCK_N, apply_bitmatrix, apply_bitmatrix_crc,
                               pack_bitmatrix, pack_crc_tables, plane_major)
 from ..ops.erasure import resolve_device
+from ..stats import roofline as _roofline
 from .mesh import Mesh, MeshArray, volume_blocks
 
 # K1 on a card takes widths in multiples of 16 bytes: a block of another
 # width is zero-padded for the launch and cut back after.
 _K1_ALIGN = 16
+
+
+def mm_name() -> str:
+    """Roofline dtype label of the batch paths: the kernels mix bits
+    with packed-mask AND/XOR, read against the int8 roof."""
+    return "int8"
+
+
+def record_fenced_batch(kernel: str, codec_name: str, *,
+                        out_rows: int, in_rows: int, n: int,
+                        batch: int, crc: bool, seconds: float,
+                        measured_bytes: int | None = None,
+                        node: str = "", device=None) -> None:
+    """Roofline record for a batched kernel invocation.  The batch entry
+    points return without waiting for the device (waiting inside
+    dispatch would serialise the stream pipeline), so the caller
+    invokes this from its drain site with `Step.kernel_seconds()`, read
+    after `Step.wait`.  Callers gate on `roofline.ARMED` themselves so
+    the disarmed cost stays one flag read."""
+    try:
+        _roofline.LEDGER.record(
+            kernel, codec_name, mm_name(), out_rows=out_rows,
+            in_rows=in_rows, n=n, batch=batch, crc=crc,
+            seconds=seconds, measured_bytes=measured_bytes, node=node,
+            device=device)
+    except Exception:  # noqa: BLE001 — accounting never breaks encode
+        pass
 
 
 def _codec_of(data_shards: int, parity_shards: int, matrix_kind: str,
@@ -134,6 +168,8 @@ class Step:
         self.parts: list[tuple] = []
         self._host = None
         self._events: list = []
+        # One roofline.KernelTimer per launch while the ledger is armed.
+        self.timers: list = []
 
     def array(self):
         """The output: a tensor on the device, or a MeshArray."""
@@ -189,6 +225,17 @@ class Step:
         for ev in self._events:
             ev.synchronize()
 
+    def kernel_seconds(self) -> float | None:
+        """The step's kernel time, the longest of its launches (they run
+        on their devices side by side): device time on a card, host time
+        of the plain versions on the CPU.  After `wait` the launches'
+        end events have completed; None when the step was not timed or a
+        launch is still running."""
+        secs = [t.seconds() for t in self.timers]
+        if not secs or None in secs:
+            return None
+        return max(secs)
+
     def host_out(self) -> np.ndarray:
         return self._host[0].numpy()
 
@@ -218,16 +265,20 @@ def _step(x, mesh: Mesh | None, device, masks: torch.Tensor, crc: bool,
         blk = blk.contiguous()
         width = blk.shape[2]
         partials = None
+        timer = _roofline.KernelTimer(dev) if _roofline.ARMED else None
         if crc:
-            out, partials = apply_bitmatrix_crc(masks, blk, *_crc_consts(dev))
+            out, partials = apply_bitmatrix_crc(masks, blk, *_crc_consts(dev),
+                                                timer=timer)
             partials = partials[:, keep_from:]
         elif dev.type == "cuda" and width % _K1_ALIGN:
             padded = torch.zeros((*blk.shape[:2], -(-width // _K1_ALIGN)
                                   * _K1_ALIGN), dtype=torch.uint8, device=dev)
             padded[:, :, :width] = blk
-            out = apply_bitmatrix(masks, padded)[:, :, :width]
+            out = apply_bitmatrix(masks, padded, timer=timer)[:, :, :width]
         else:
-            out = apply_bitmatrix(masks, blk)
+            out = apply_bitmatrix(masks, blk, timer=timer)
+        if timer is not None:
+            step.timers.append(timer)
         step.parts.append((vi, ci, dev, vs, cs, out, partials))
     return step
 

@@ -80,6 +80,34 @@ with tempfile.TemporaryDirectory() as d:
     for backend in ("torch", "numpy"):
         c = new_coder(backend=backend, codec="lrc", device="cpu")
         assert host_array(c.encode(data)).shape == (4, 5000)
+    from seaweedfs_tpu_torch.cluster.rpc import RpcError
+    from seaweedfs_tpu_torch.events import JOURNAL, emit
+    from seaweedfs_tpu_torch.fault import registry as fault
+    from seaweedfs_tpu_torch.stats import roofline
+    from seaweedfs_tpu_torch.trace import tracer
+    fault.arm("volume.read", "status:503*1")
+    try:
+        fault.hit("volume.read")
+        raise AssertionError("armed fault did not fire")
+    except RpcError as e:
+        assert e.status == 503
+    assert JOURNAL.snapshot(type_="fault.injected")
+    emit("ec.repair.local", vid=8, codec="lrc")
+    os.environ["SEAWEEDFS_TPU_TRACE"] = "1"
+    with tracer.root_span("ec.batch_rebuild", "ec") as root:
+        with tracer.span("ec.dat_rebuild"):
+            pass
+    assert len(tracer.BUFFER.get(root.trace_id)) == 2
+    os.environ["SEAWEEDFS_TPU_ROOFLINE_CACHE"] = os.path.join(d, "peaks")
+    roofline.PROBE_SIZES["cpu"] = {"m": 32, "membw_bytes": 4096,
+                                   "copy_bytes": 4096, "reps": 1}
+    assert "error" not in roofline.probe_peaks("cpu")
+    n_rows = len(roofline.LEDGER.recent(256))
+    new_coder(device="cpu").encode(data)
+    assert len(roofline.LEDGER.recent(256)) == n_rows + 1
+    assert roofline.LEDGER.recent(1)[0]["achieved"] is not None
+    assert roofline.LEDGER.conservation()["ok"]
+    assert roofline.LEDGER.pipelines()
 assert not any(sys.modules.get(n) for n in ("jax", "jaxlib", "seaweedfs_tpu"))
 print("ISOLATED-OK")
 """

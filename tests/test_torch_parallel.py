@@ -191,13 +191,13 @@ def test_one_launch_per_step_and_device(monkeypatch):
     from seaweedfs_tpu_torch.parallel import sharded_codec
     seen = []
 
-    def k1(masks, x):
+    def k1(masks, x, timer=None):
         seen.append(("k1", tuple(x.shape)))
-        return apply_bitmatrix(masks, x)
+        return apply_bitmatrix(masks, x, timer=timer)
 
-    def k2(masks, x, *consts):
+    def k2(masks, x, *consts, timer=None):
         seen.append(("k2", tuple(x.shape)))
-        return apply_bitmatrix_crc(masks, x, *consts)
+        return apply_bitmatrix_crc(masks, x, *consts, timer=timer)
 
     monkeypatch.setattr(sharded_codec, "apply_bitmatrix", k1)
     monkeypatch.setattr(sharded_codec, "apply_bitmatrix_crc", k2)
