@@ -61,7 +61,7 @@ Phases; any failure raises and the script exits non-zero:
              of these paths runs with the launch counts reset just
              before it and read just after, and must have launched its
              instantiations (with a volume axis where it stacks).
-7. observability — phases 4 and 6 run with the roofline ledger armed
+7. observability — phases 4, 6 and 8 run with the roofline ledger armed
              and the EC stage timing on (the defaults), and each of their
              paths is a window: the ledger's rows, the
              SeaweedFS_ec_stage_* histograms and the repair-read bytes
@@ -72,6 +72,7 @@ Phases; any failure raises and the script exits non-zero:
              achieved fraction is in (0, 1], the ledger's conservation,
              the exposition against promcheck, an encode and a rebuild
              occupancy doc, and the LRC volume's ec.repair.local event.
+             Phase 8's three kernel steps are windows like phase 4's.
              The hooks' cost, outside the counted windows and after the
              launch counts are read: phase 4's degraded reads run again
              with the hooks off, with the stage timing alone and armed
@@ -82,15 +83,41 @@ Phases; any failure raises and the script exits non-zero:
              ledger's K1 10->4 row: that launch alone, timed by the
              ledger's event pair, with the card busy and after idling.
 
-Phase 6 runs before phase 5, whose timings include its shapes; phase 7
-runs last.
+8. storage — one volume's life through the storage engine
+             (storage/): `weed volume -dir=... -max=7` with the compact
+             needle map under `weed master -volumeSizeLimitMB=30000`, the
+             volume cut to --dat-mib.  Store.write_needle fills it with
+             needles log-uniform in 1 KiB..4 MiB, one of them written with
+             volume.corrupt armed; half a record appended to the .dat (a
+             torn tail) must be truncated exactly by the remount's
+             recover_volume_files; ScrubDaemon.scrub_volume quarantines the
+             rotten needle; 10 % of the needles are deleted and vacuum must
+             leave exactly the live records; ec.generate (readonly, sync,
+             .ecx, write_ec_files with fused CRC: K2 10->4, .vif); the EC
+             volume is mounted, the source deleted, 5 needles deleted
+             through the EC volume (.ecj); one byte flipped in a 1 MiB
+             block of shard 3 and of shard 12 (different blocks), and
+             ScrubDaemon.scrub_ec_volume(repair=True) with the local
+             block-repair callback must repair both (K1 10->1) and restore
+             every shard's sha256; shards 2/5/11/13 are deleted and rebuilt
+             (K1 10->4); ec.to_volume (.dat from the data shards, .idx from
+             .ecx + .ecj) is mounted through Store, every live needle reads
+             back with its CRC checked, every deleted or quarantined one
+             raises NotFoundError, and the decoded volume scrubs clean.  The
+             scrub's throttle is off (mbps=0, its documented "disabled").
+
+Phase 6 runs before phase 8, and phase 8 before phase 5, whose timings
+include phase 6's shapes; phase 7 runs last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
 
-Prints a {"main_path": ...} line, a {"batch_path": ...} line, an
-{"observability": ...} line, nvidia-smi's line, a {"kernels": [...]} line,
-and last {"ok": true, "device": {...}}.
+Prints a {"main_path": ...} line, a {"batch_path": ...} line, a
+{"storage_path": ...} line (walls and GB/s per step, needles written,
+deleted and quarantined, bytes reclaimed, launches per step and
+instantiation, device busy share), an {"observability": ...} line,
+nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -157,6 +184,20 @@ HOOK_MODES = ("off", "timing", "armed")
 HOOK_ROUNDS = 2  # times each degraded read runs in each mode
 HOOK_TURNS_BATCH = ("off", "armed", "armed", "off", "off", "armed")
 SPLIT_N = 64 * 1024  # width of the per-call cost's coder calls
+# The storage path (phase 8): `weed volume -max=7` with the default
+# compact needle map; the needle written while volume.corrupt is armed;
+# the share of needles deleted before the encode and the count deleted
+# from the EC volume; the data and parity shard whose blocks rot; the
+# shards lost before the rebuild (four, so it runs K1 10->4).
+STORAGE_VID = 1
+STORAGE_COLLECTION = "smoke"
+STORAGE_MAX_VOLUMES = 7
+STORAGE_CORRUPT_NID = 7
+STORAGE_DELETE_SHARE = 0.1
+STORAGE_EC_DELETES = 5
+STORAGE_ROT_SHARDS = (3, 12)
+STORAGE_REBUILD_LOST = (2, 5, 11, 13)
+STORAGE_STEPS = ("storage_generate", "storage_ec_scrub", "storage_rebuild")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1067,6 +1108,293 @@ def phase_batch(torch, dev, args) -> dict:
     return out
 
 
+def _journal_seq() -> int:
+    from seaweedfs_tpu_torch.events import JOURNAL
+    return max((e["seq"] for e in JOURNAL.snapshot()), default=0)
+
+
+def _events_since(type_: str, seq: int) -> list:
+    from seaweedfs_tpu_torch.events import JOURNAL
+    return [e["attrs"] for e in JOURNAL.snapshot(type_=type_) if e["seq"] > seq]
+
+
+def _flip_byte(path: str, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes((b[0] ^ 0xFF,)))
+
+
+def phase_storage(torch, dev, args) -> dict:
+    """Phase 8: one volume's whole life through the storage engine, as
+    `weed volume -dir=... -max=7` under `weed master
+    -volumeSizeLimitMB=30000` runs it, cut to --dat-mib.  Every needle
+    goes through Store; each K1/K2 step runs with the launch counts reset
+    just before it and read just after, as a phase 7 window."""
+    from seaweedfs_tpu_torch.core.needle import Needle, get_actual_size
+    from seaweedfs_tpu_torch.ec import to_ext
+    from seaweedfs_tpu_torch.ec.decoder import (find_dat_file_size,
+                                                write_dat_file,
+                                                write_idx_file_from_ec_index)
+    from seaweedfs_tpu_torch.ec.encoder import (rebuild_ec_files,
+                                                write_ec_files,
+                                                write_sorted_file_from_idx)
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.ec.volume_info import save_volume_info
+    from seaweedfs_tpu_torch.fault import registry as fault
+    from seaweedfs_tpu_torch.storage.scrub import (ScrubDaemon,
+                                                   repair_ec_block_locally)
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.vacuum import vacuum
+    from seaweedfs_tpu_torch.storage.volume import NotFoundError
+
+    work = os.path.join(REPO, "_smoke_work", "storage")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rng = np.random.default_rng(args.seed + 30)
+    limit = args.dat_mib * MIB
+    vid = STORAGE_VID
+    walls: dict = {}
+    windows: dict = {}
+    launches: dict = {}
+
+    def window(name, fn):
+        reset_counts()
+        before = obs_snapshot(torch)
+        t0 = time.perf_counter()
+        result = fn()
+        walls[name] = time.perf_counter() - t0
+        windows[name] = obs_window(before, obs_snapshot(torch))
+        launches[name] = read_counts()
+        return result
+
+    store = Store([work], max_volume_counts=[STORAGE_MAX_VOLUMES])
+    try:
+        # 1. Writes through Store until the volume is full, one of them
+        # bit-rotted on its way to disk; then a torn tail and a remount.
+        v = store.add_volume(vid, STORAGE_COLLECTION)
+        base = v.file_name()
+        blob = rng.bytes(limit)
+        view = memoryview(blob)
+        payloads: dict = {}
+        cookies: dict = {}
+        sizes: dict = {}
+        pos = 0
+        t0 = time.perf_counter()
+        while True:
+            size = int(math.exp(rng.uniform(math.log(1024), math.log(4 * MIB))))
+            room = limit - v.dat_size() - get_actual_size(0, v.version) - 16
+            size = min(size, room, len(blob) - pos)
+            if size < 1024:
+                break
+            nid = len(payloads) + 1
+            n = Needle(cookie=int(rng.integers(1 << 32)), id=nid,
+                       data=view[pos:pos + size])
+            pos += size
+            if nid == STORAGE_CORRUPT_NID:
+                fault.arm("volume.corrupt", "fail*1")
+            try:
+                store.write_needle(vid, n)
+            finally:
+                fault.disarm_all()
+            payloads[nid], cookies[nid], sizes[nid] = n.data, n.cookie, n.size
+        v.sync()
+        walls["write"] = time.perf_counter() - t0
+        dat_bytes = v.dat_size()
+        check(len(payloads) > STORAGE_CORRUPT_NID,
+              f"only {len(payloads)} needles fit in {args.dat_mib} MiB")
+        log(f"wrote {len(payloads)} needles through Store, .dat {dat_bytes} "
+            f"bytes in {walls['write']:.3f} s")
+
+        torn = Needle(cookie=1, id=len(payloads) + 1,
+                      data=bytes(4096)).to_bytes(v.version)
+        torn = torn[:len(torn) // 2]
+        with open(base + ".dat", "ab") as f:
+            f.write(torn)
+        seq = _journal_seq()
+        t0 = time.perf_counter()
+        store.unmount_volume(vid)
+        v = store.mount_volume(vid)
+        walls["remount"] = time.perf_counter() - t0
+        recovered = _events_since("volume.recovered", seq)
+        check(v.dat_size() == dat_bytes == os.path.getsize(base + ".dat"),
+              f"remount left {os.path.getsize(base + '.dat')} bytes, "
+              f"expected {dat_bytes}")
+        check(len(recovered) == 1
+              and recovered[0]["dat_truncated"] == len(torn)
+              and not recovered[0]["idx_appended"]
+              and not recovered[0]["idx_regenerated"],
+              f"recovery of a {len(torn)}-byte torn tail: {recovered}")
+
+        # 2. The scrub quarantines the rotten needle; deletes; vacuum.
+        seq = _journal_seq()
+        scrub = ScrubDaemon(store, {}, node="smoke", mbps=0, interval=0)
+        t0 = time.perf_counter()
+        report = scrub.scrub_volume(v)
+        walls["scrub"] = time.perf_counter() - t0
+        check(report["corrupt"] == report["quarantined"] == 1
+              and set(v.repair_tickets) == {STORAGE_CORRUPT_NID},
+              f"scrub of the written volume: {report}, tickets "
+              f"{sorted(v.repair_tickets)}")
+        check([e["key"] for e in _events_since("volume.quarantine", seq)]
+              == [f"{STORAGE_CORRUPT_NID:x}"], "no volume.quarantine event")
+        candidates = [i for i in payloads if i != STORAGE_CORRUPT_NID]
+        deleted = sorted(int(i) for i in rng.choice(
+            candidates, max(1, int(len(candidates) * STORAGE_DELETE_SHARE)),
+            replace=False))
+        for nid in deleted:
+            check(store.delete_needle(vid, nid) > 0, f"delete of {nid}")
+        live = [i for i in payloads
+                if i not in set(deleted) and i != STORAGE_CORRUPT_NID]
+        before = v.dat_size()
+        seq = _journal_seq()
+        t0 = time.perf_counter()
+        vacuum(v)
+        walls["vacuum"] = time.perf_counter() - t0
+        want = v.super_block.block_size() + sum(
+            get_actual_size(sizes[i], v.version) for i in live)
+        reclaimed = before - v.dat_size()
+        check(v.dat_size() == want, f"vacuum left {v.dat_size()} bytes, the "
+              f"{len(live)} live needles take {want}")
+        check([e["reclaimed_bytes"] for e in _events_since("volume.vacuum", seq)]
+              == [reclaimed], "volume.vacuum event")
+        vacuumed_bytes = v.dat_size()
+        log(f"scrub quarantined needle {STORAGE_CORRUPT_NID}; deleted "
+            f"{len(deleted)}; vacuum reclaimed {reclaimed} bytes in "
+            f"{walls['vacuum']:.3f} s")
+
+        # 3. ec.generate in the volume server's order, then the EC volume
+        # is mounted, the source volume deleted, and a few more needles
+        # deleted through the EC volume (.ecj).
+        def generate():
+            store.mark_volume_readonly(vid, True)
+            v.sync()
+            write_sorted_file_from_idx(base)
+            write_ec_files(base, device=dev)
+            save_volume_info(base, v.version, codec="rs")
+
+        window("storage_generate", generate)
+        c = launches["storage_generate"]["rs_bitmatrix_crc"]
+        check(c["by_instantiation"]["10->4"] > 0 and c["launches"] ==
+              c["by_instantiation"]["10->4"], f"ec.generate launched {c}")
+        shard_bytes = os.path.getsize(base + to_ext(0))
+        ev = EcVolume(base, vid=vid, device=dev)
+        store.delete_volume(vid)
+        ec_deleted = sorted(int(i) for i in rng.choice(
+            live, STORAGE_EC_DELETES, replace=False))
+        for nid in ec_deleted:
+            ev.delete_needle(nid)
+        check(os.path.getsize(base + ".ecj") == 8 * len(ec_deleted), ".ecj")
+        log(f"ec.generate {walls['storage_generate']:.3f} s; EC volume "
+            f"mounted, {len(ec_deleted)} needles deleted through it")
+
+        # 4. Rot in a data and a parity shard, at different block indices;
+        # the EC scrub repairs both through K1 10->1.
+        digests = {sid: sha256_file(base + to_ext(sid)) for sid in range(14)}
+        blocks = shard_bytes // MIB
+        check(blocks >= 2, f"shards of {shard_bytes} bytes hold one 1 MiB block")
+        rot = dict(zip(STORAGE_ROT_SHARDS, (blocks // 3, 2 * blocks // 3)))
+        for sid, b in rot.items():
+            _flip_byte(base + to_ext(sid), b * MIB + 4321)
+        seq = _journal_seq()
+        ec_scrub = ScrubDaemon(store, {vid: ev}, node="smoke", mbps=0,
+                               interval=0,
+                               repair_ec_block=repair_ec_block_locally)
+        ec_report = window("storage_ec_scrub",
+                           lambda: ec_scrub.scrub_ec_volume(ev, repair=True))
+        ev.close()
+        check(ec_report["corrupt"] == ec_report["repaired"] == len(rot)
+              and ec_report["unrepaired"] == 0, f"EC scrub: {ec_report}")
+        for sid in range(14):
+            check(sha256_file(base + to_ext(sid)) == digests[sid],
+                  f"shard {sid} differs from its sha256 after the repair")
+        repaired = sorted((e["shard"], e["block"]) for e in
+                          _events_since("needle.repaired", seq))
+        check(repaired == sorted(rot.items()), f"needle.repaired {repaired}")
+        c = launches["storage_ec_scrub"]["rs_bitmatrix"]
+        check(c["launches"] == c["by_instantiation"]["10->1"] == len(rot),
+              f"EC scrub launched {c}")
+        check(windows["storage_ec_scrub"]["repair"].get("rs") ==
+              len(rot) * 10 * MIB, f"repair reads {windows['storage_ec_scrub']}")
+        log(f"EC scrub {walls['storage_ec_scrub']:.3f} s: {ec_report}")
+
+        # 5. Four shards lost, .ec02 among them: rebuild_ec_files.
+        for sid in STORAGE_REBUILD_LOST:
+            os.remove(base + to_ext(sid))
+        rebuilt = window("storage_rebuild",
+                         lambda: rebuild_ec_files(base, device=dev))
+        check(rebuilt == list(STORAGE_REBUILD_LOST), f"rebuilt {rebuilt}")
+        for sid in STORAGE_REBUILD_LOST:
+            check(sha256_file(base + to_ext(sid)) == digests[sid],
+                  f"rebuilt shard {sid} differs from its sha256")
+        c = launches["storage_rebuild"]["rs_bitmatrix"]
+        check(c["by_instantiation"]["10->4"] > 0 and c["launches"] ==
+              c["by_instantiation"]["10->4"], f"rebuild launched {c}")
+
+        # 6. ec.to_volume: back to a .dat/.idx, mounted through Store.
+        t0 = time.perf_counter()
+        write_dat_file(base, find_dat_file_size(base))
+        write_idx_file_from_ec_index(base)
+        v = store.mount_volume(vid)
+        walls["decode"] = time.perf_counter() - t0
+        final = [i for i in live if i not in set(ec_deleted)]
+        t0 = time.perf_counter()
+        for nid in final:
+            n = store.read_needle(vid, nid, cookies[nid])
+            check(n.data == payloads[nid], f"needle {nid} read back wrong")
+        walls["reads"] = time.perf_counter() - t0
+        gone = deleted + ec_deleted + [STORAGE_CORRUPT_NID]
+        for nid in gone:
+            try:
+                store.read_needle(vid, nid)
+            except NotFoundError:
+                continue
+            check(False, f"needle {nid} reads back after its delete")
+        log(f"ec.to_volume {walls['decode']:.3f} s; {len(final)} needles read "
+            f"back in {walls['reads']:.3f} s; {len(gone)} raise NotFoundError")
+
+        # 7. The decoded volume scrubs clean.
+        t0 = time.perf_counter()
+        final_report = ScrubDaemon(store, {}, node="smoke", mbps=0,
+                                   interval=0).scrub_volume(v)
+        walls["final_scrub"] = time.perf_counter() - t0
+        check(final_report["corrupt"] == 0
+              and final_report["checked"] == len(final),
+              f"scrub of the decoded volume: {final_report}")
+        decoded_bytes = v.dat_size()
+    finally:
+        fault.disarm_all()
+        store.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    gb = lambda nbytes, s: nbytes / s / 1e9  # noqa: E731
+    return {
+        "reduced": f"volume 30000 MB -> {args.dat_mib} MiB",
+        "max_volumes": STORAGE_MAX_VOLUMES, "needle_map": "compact",
+        "scrub_mbps": 0,
+        "dat_bytes": dat_bytes, "vacuumed_dat_bytes": vacuumed_bytes,
+        "decoded_dat_bytes": decoded_bytes, "shard_bytes": shard_bytes,
+        "needles_written": len(payloads),
+        "needles_deleted": len(deleted) + len(ec_deleted),
+        "needles_deleted_before_encode": len(deleted),
+        "needles_deleted_after_encode": len(ec_deleted),
+        "needles_quarantined": 1, "needles_read_back": len(final),
+        "torn_bytes_truncated": len(torn), "bytes_reclaimed": reclaimed,
+        "walls_s": walls,
+        "gb_s": {"write": gb(dat_bytes, walls["write"]),
+                 "scrub": gb(dat_bytes, walls["scrub"]),
+                 "vacuum": gb(before, walls["vacuum"]),
+                 "ec_generate": gb(vacuumed_bytes, walls["storage_generate"]),
+                 "ec_scrub": gb(14 * shard_bytes, walls["storage_ec_scrub"]),
+                 "ec_rebuild": gb(vacuumed_bytes, walls["storage_rebuild"]),
+                 "dat_decode": gb(decoded_bytes, walls["decode"])},
+        "scrub_report": report, "ec_scrub_report": ec_report,
+        "final_scrub_report": final_report,
+        "launches": launches, "obs": windows,
+    }
+
+
 def entry(t, plain, lib, k_in, k_out, width, crc, volumes=1):
     """A timing row: kernel, plain and library ms, and the bound for
     `volumes` volumes of (k_in -> k_out, width)."""
@@ -1265,23 +1593,28 @@ def isolated_launch_ms(torch, dev, kern, reps: int = 30) -> dict:
 
 
 def _window_expectation(name: str, w: dict, main_shard: int, rs_shards: int,
-                        lrc_shard: int) -> tuple[str, dict, dict]:
+                        lrc_shard: int, storage_shard: int
+                        ) -> tuple[str, dict, dict]:
     """(catalog key, bytes per EC stage, repair-read bytes per codec) that
     window `name` must show, from the shard sizes of its volumes: RS reads
     10 survivors and LRC's local repair 5; a batched step's device stage
     counts its stacked input, the ledger's bytes without the output rows.
-    A degraded read's bytes are its intervals' reads, which only the
-    repair counter sees: the kernel stage must equal them."""
+    A degraded read's or a scrub repair's bytes are its intervals' reads,
+    which only the repair counter sees: the kernel stage must equal them."""
     def stacked(key, k_in, k_out):
         return w["bytes"].get(key, 0) * k_in // (k_in + k_out)
 
-    if name == "main_encode":
-        return "encode_crc_kernel", {"encode_crc_kernel": 10 * main_shard}, {}
-    if name == "main_rebuild":
-        return ("reconstruct_kernel", {"reconstruct_kernel": 10 * main_shard},
-                {"rs": 10 * main_shard})
-    if name in ("main_reads", "lrc_reads"):
-        codec = "rs" if name == "main_reads" else "lrc"
+    single = {"main_encode": main_shard, "storage_generate": storage_shard,
+              "main_rebuild": main_shard, "storage_rebuild": storage_shard}
+    if name in ("main_encode", "storage_generate"):
+        return ("encode_crc_kernel",
+                {"encode_crc_kernel": 10 * single[name]}, {})
+    if name in ("main_rebuild", "storage_rebuild"):
+        return ("reconstruct_kernel",
+                {"reconstruct_kernel": 10 * single[name]},
+                {"rs": 10 * single[name]})
+    if name in ("main_reads", "lrc_reads", "storage_ec_scrub"):
+        codec = "lrc" if name == "lrc_reads" else "rs"
         got = w["repair"].get(codec, 0)
         check(got > 0, f"{name}: no repair-read bytes")
         return "reconstruct_kernel", {"reconstruct_kernel": got}, {codec: got}
@@ -1303,9 +1636,9 @@ def _window_expectation(name: str, w: dict, main_shard: int, rs_shards: int,
 
 
 def phase_observability(torch, probe: dict, main_path: dict, batch: dict,
-                        timings: dict) -> dict:
+                        storage: dict, timings: dict) -> dict:
     """Phase 7: the ledger, the stage histograms, the journal and the
-    exposition after phases 4 and 6, held against what those paths
+    exposition after phases 4, 6 and 8, held against what those paths
     launched and moved; the hooks' cost from the turns in each mode."""
     from seaweedfs_tpu_torch.events import JOURNAL
     from seaweedfs_tpu_torch.events.journal import events_total
@@ -1317,8 +1650,9 @@ def phase_observability(torch, probe: dict, main_path: dict, batch: dict,
     windows = dict(main_path.pop("obs"))
     for step in PHASE6_STEPS:
         windows[step] = batch[step].pop("obs")
+    windows.update(storage.pop("obs"))
     shard = (main_path["shard_bytes"], batch["rs_encode"]["shard_bytes"],
-             batch["lrc_encode"]["shard_bytes"])
+             batch["lrc_encode"]["shard_bytes"], storage["shard_bytes"])
     seconds: dict = {}  # (kernel, geometry) -> the windows' seconds
     by_window: dict = {}  # (window, kernel, geometry) -> seconds
     capped = 0
@@ -1470,6 +1804,7 @@ def main() -> int:
     with hooks("armed"):
         main_path = phase_main_path(torch, dev, args)
         batch = phase_batch(torch, dev, args)
+        storage = phase_storage(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -1484,6 +1819,17 @@ def main() -> int:
         n = batch[step]["launches"]["rs_bitmatrix_crc"]["launches"]
         batch[step]["device_busy_share"] = \
             n * ms / 1e3 / batch[step]["wall_s"]
+    # The same for the storage path's K1/K2 steps, at their shapes: K2
+    # 10->4 and K1 10->4 at 4 MiB, K1 10->1 at 1 MiB.
+    k1 = timings["rs_bitmatrix"]
+    busy = {}
+    for step, fn, ms in (
+            ("storage_generate", "rs_bitmatrix_crc", k2["ms"]),
+            ("storage_ec_scrub", "rs_bitmatrix", k1["at_10_to_1_1mib"]["ms"]),
+            ("storage_rebuild", "rs_bitmatrix", k1["ms"])):
+        n = storage["launches"][step][fn]["launches"]
+        busy[step] = n * ms / 1e3 / storage["walls_s"][step]
+    storage["device_busy_share"] = busy
 
     kernels = [
         {"name": "rs_bitmatrix", "route": "cuda",
@@ -1491,21 +1837,26 @@ def main() -> int:
          "replaces": "seaweedfs_tpu/ops/coder_pallas.py:104",
          "launches": main_path["launches"]["rs_bitmatrix"] + sum(
              batch[s]["launches"]["rs_bitmatrix"]["launches"]
-             for s in PHASE6_STEPS),
+             for s in PHASE6_STEPS) + sum(
+             storage["launches"][s]["rs_bitmatrix"]["launches"]
+             for s in STORAGE_STEPS),
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
          "replaces": "seaweedfs_tpu/ops/coder_pallas.py:200",
          "launches": main_path["launches"]["rs_bitmatrix_crc"] + sum(
              batch[s]["launches"]["rs_bitmatrix_crc"]["launches"]
-             for s in PHASE6_STEPS),
+             for s in PHASE6_STEPS) + sum(
+             storage["launches"][s]["rs_bitmatrix_crc"]["launches"]
+             for s in STORAGE_STEPS),
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
-    obs = phase_observability(torch, probe, main_path, batch, timings)
+    obs = phase_observability(torch, probe, main_path, batch, storage, timings)
     obs["ledger_vs_phase5"]["k1_10_to_4_4mib"]["alone_ms"] = \
         isolated_launch_ms(torch, dev, kern)
     print(json.dumps({"main_path": main_path}))
     print(json.dumps({"batch_path": batch}))
+    print(json.dumps({"storage_path": storage}))
     print(json.dumps({"observability": obs}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+_PARSE_CACHE: dict = {}
+
 
 @dataclass(frozen=True)
 class ReplicaPlacement:
@@ -14,6 +16,12 @@ class ReplicaPlacement:
 
     @classmethod
     def parse(cls, t: str) -> "ReplicaPlacement":
+        # Memoized: parse runs twice per /dir/assign on the master hot
+        # path and the distinct placement strings are few ("000",
+        # "001", ...).  The instance is frozen, so sharing is safe.
+        hit = _PARSE_CACHE.get(t)
+        if hit is not None:
+            return hit
         vals = [0, 0, 0]
         for i, c in enumerate(t):
             count = ord(c) - ord("0")
@@ -21,8 +29,11 @@ class ReplicaPlacement:
                 raise ValueError(f"unknown replication type {t!r}")
             if i < 3:
                 vals[i] = count
-        return cls(diff_data_center_count=vals[0], diff_rack_count=vals[1],
-                   same_rack_count=vals[2])
+        rp = cls(diff_data_center_count=vals[0], diff_rack_count=vals[1],
+                 same_rack_count=vals[2])
+        if len(_PARSE_CACHE) < 1024:  # bounded (strings are attacker-
+            _PARSE_CACHE[t] = rp      # influenced via the query param)
+        return rp
 
     @classmethod
     def from_byte(cls, b: int) -> "ReplicaPlacement":

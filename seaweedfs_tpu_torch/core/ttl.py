@@ -46,8 +46,17 @@ class TTL:
             return EMPTY_TTL
         return cls(count=b[0], unit=b[1])
 
+    @classmethod
+    def from_uint32(cls, v: int) -> "TTL":
+        return cls.from_bytes(bytes([(v >> 8) & 0xFF, v & 0xFF]))
+
     def to_bytes(self) -> bytes:
         return bytes([self.count & 0xFF, self.unit & 0xFF])
+
+    def to_uint32(self) -> int:
+        if self.count == 0:
+            return 0
+        return (self.count << 8) | self.unit
 
     def minutes(self) -> int:
         return self.count * _UNIT_MINUTES.get(self.unit, 0)

@@ -1,11 +1,14 @@
-"""EC decode: shard files -> `.dat` (the ec.decode reverse path).
+"""EC decode: shard files -> `.dat` + `.idx` (the ec.decode reverse path).
 
 Port of weed/storage/erasure_coding/ec_decoder.go: the volume version,
-the `.dat` size from the `.ecx`, and the interleaved copy back.
+the `.dat` size from the `.ecx`, the interleaved copy back, and the
+`.idx` from the `.ecx` plus the `.ecj` deletion journal.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import time
 
 from . import DATA_SHARDS, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, to_ext
@@ -21,6 +24,27 @@ def read_ec_volume_version(base_file_name: str) -> int:
     """Volume version from the superblock at the head of .ec00."""
     with open(base_file_name + to_ext(0), "rb") as f:
         return SuperBlock.from_bytes(f.read(64 * 1024)).version
+
+
+def iterate_ecj_file(base_file_name: str):
+    """Yield deleted needle ids from the `.ecj` journal."""
+    path = base_file_name + ".ecj"
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(t.NEEDLE_ID_SIZE)
+            if len(buf) != t.NEEDLE_ID_SIZE:
+                return
+            yield t.get_uint64(buf)
+
+
+def write_idx_file_from_ec_index(base_file_name: str) -> None:
+    """.ecx + .ecj -> .idx (WriteIdxFileFromEcIndex): copy then tombstones."""
+    shutil.copyfile(base_file_name + ".ecx", base_file_name + ".idx")
+    with open(base_file_name + ".idx", "ab") as out:
+        for key in iterate_ecj_file(base_file_name):
+            idx_mod.append_entry(out, key, 0, t.TOMBSTONE_FILE_SIZE)
 
 
 def find_dat_file_size(base_file_name: str) -> int:

@@ -78,14 +78,19 @@ class BlockCrcAccumulator:
         return list(self._crcs)
 
 
-def file_block_crcs(path: str, block: int = BLOCK) -> list[int]:
-    """Per-block CRCs of an existing shard file."""
+def file_block_crcs(path: str, block: int = BLOCK,
+                    limiter=None) -> list[int]:
+    """Per-block CRCs of an existing shard file (the scrub's
+    trust-on-first-scrub path).  `limiter` is an optional RateLimiter
+    whose take(nbytes) throttles the disk reads."""
     acc = BlockCrcAccumulator(block)
     with open(path, "rb") as f:
         while True:
             buf = f.read(block)
             if not buf:
                 break
+            if limiter is not None:
+                limiter.take(len(buf))
             acc.feed(buf)
     return acc.finalize()
 
@@ -124,6 +129,14 @@ class ShardChecksums:
     def set_shard(self, sid: int, crcs: list[int]) -> None:
         self.shards[sid] = list(crcs)
 
+    def set_block(self, sid: int, block_index: int, crc: int) -> None:
+        crcs = self.shards.get(sid)
+        if crcs is not None and 0 <= block_index < len(crcs):
+            crcs[block_index] = crc
+
+    def drop_shard(self, sid: int) -> None:
+        self.shards.pop(sid, None)
+
     def save(self) -> None:
         doc = {"block": self.block,
                "shards": {str(sid): [f"{c:08x}" for c in crcs]
@@ -142,3 +155,27 @@ class ShardChecksums:
                 os.remove(tmp)
             except FileNotFoundError:
                 pass
+
+    def verify_file(self, sid: int, path: str,
+                    limiter=None) -> list[int]:
+        """Compare a shard file against its recorded CRCs.  Returns the
+        list of corrupt block indices (a length mismatch marks the
+        shorter/garbled tail blocks corrupt too)."""
+        want = self.shards.get(sid)
+        if want is None:
+            return []
+        bad: list[int] = []
+        i = 0
+        with open(path, "rb") as f:
+            while True:
+                buf = f.read(self.block)
+                if not buf:
+                    break
+                if limiter is not None:
+                    limiter.take(len(buf))
+                if i >= len(want) or crc32c(buf) != want[i]:
+                    bad.append(i)
+                i += 1
+        # Blocks the record promises but the file no longer has.
+        bad.extend(range(i, len(want)))
+        return bad

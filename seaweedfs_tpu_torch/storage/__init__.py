@@ -1,2 +1,1 @@
-"""Volume files: the sorted needle map behind `.ecx`, and an append-only
-`.dat`/`.idx` writer."""
+"""Volume engine: append-only blob storage with O(1) reads."""

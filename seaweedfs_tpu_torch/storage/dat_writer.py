@@ -3,9 +3,9 @@
 Writes the superblock, then each needle record at the next 8-byte
 aligned offset, and one `.idx` entry per record — the same bytes
 `seaweedfs_tpu.storage.volume.Volume.write_needle` produces for the
-same needles.  It is the minimal producer of a volume for the EC path;
-the mounted-volume engine (reads, deletes, vacuum, crash recovery)
-waits for the storage-engine slice.
+same needles.  It is the minimal producer of a volume for the EC path,
+with no needle map, lock or recovery pass; the mounted-volume engine
+(reads, deletes, vacuum, crash recovery) is storage/volume.py.
 """
 
 from __future__ import annotations

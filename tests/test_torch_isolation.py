@@ -80,6 +80,19 @@ with tempfile.TemporaryDirectory() as d:
     for backend in ("torch", "numpy"):
         c = new_coder(backend=backend, codec="lrc", device="cpu")
         assert host_array(c.encode(data)).shape == (4, 5000)
+    from seaweedfs_tpu_torch.storage.scrub import ScrubDaemon
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.vacuum import vacuum
+    store = Store([os.path.join(d, "store")])
+    store.add_volume(3, "iso")
+    for i, p in payloads.items():
+        store.write_needle(3, Needle(cookie=i, id=i, data=p))
+    assert store.delete_needle(3, 5) > 0
+    vacuum(store.find_volume(3))
+    assert ScrubDaemon(store, {}, mbps=0, interval=0).scrub_all(
+        repair=True)["corrupt"] == 0
+    assert store.read_needle(3, 7, 7).data == payloads[7]
+    store.close()
     from seaweedfs_tpu_torch.cluster.rpc import RpcError
     from seaweedfs_tpu_torch.events import JOURNAL, emit
     from seaweedfs_tpu_torch.fault import registry as fault
