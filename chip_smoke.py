@@ -106,8 +106,39 @@ Phases; any failure raises and the script exits non-zero:
              raises NotFoundError, and the decoded volume scrubs clean.  The
              scrub's throttle is off (mbps=0, its documented "disabled").
 
-Phase 6 runs before phase 8, and phase 8 before phase 5, whose timings
-include phase 6's shapes; phase 7 runs last.
+9. cluster — the control plane on the card's host: an upstream `weed
+             master -volumeSizeLimitMB=30000 -defaultReplication=010
+             -pulseSeconds=5` over 64 `weed volume -max=7` servers (2 DCs
+             x 4 racks x 8), which this process plays by heartbeats: 224
+             volumes of placement 010 fill every slot below the size
+             limit, and phase 8's EC volume (id 1, collection "smoke")
+             has its 14 shards on 14 nodes across both DCs; node 0's
+             beats carry this process's roofline ledger.  Per transport
+             (-transport=threads, then aio) the port's master starts as
+             `python -m seaweedfs_tpu_torch master` in a process that
+             blocks jax, jaxlib and seaweedfs_tpu; after one full beat
+             per node and one delta per pulse, 8 client threads on
+             rpc.call's keep-alive pool send 20 000 /dir/assign
+             (count=1, replication=010) and 20 000 /dir/lookup over the
+             224 volumes and the EC volume; then /vol/list,
+             /cluster/healthz, one node's goodbye and lookups of what it
+             held, and /cluster/device.  Every fid must name a declared
+             volume and its replicas, every lookup equal the declared
+             locations, the goodbye remove the node, the master emit no
+             volume.grow or volume.assign event (it never dials a
+             simulated node), /cluster/device's peaks come from the card
+             (backend cuda, an H100 kind) and its rows equal the ledger's;
+             then a 64 MiB volume is encoded (K2) and rebuilt (K1) with
+             the counts reset, node 0's next delta beat carries the
+             ledger, and /cluster/device must move by exactly that
+             window's rows, equal to its K1 and K2 launches.  Assign and
+             lookup rates with p50/p99, full-beat apply ms and the
+             master's RSS (before and after /cluster/device brings up
+             the card in it) are printed per transport; no bound on them
+             is asserted.
+
+Phase 6 runs before phase 8, phase 8 before phase 9, and phase 9 before
+phase 5, whose timings include phase 6's shapes; phase 7 runs last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
@@ -115,7 +146,9 @@ toolkit has cuobjdump, static SASS opcode counts per kernel.
 Prints a {"main_path": ...} line, a {"batch_path": ...} line, a
 {"storage_path": ...} line (walls and GB/s per step, needles written,
 deleted and quarantined, bytes reclaimed, launches per step and
-instantiation, device busy share), an {"observability": ...} line,
+instantiation, device busy share), an {"observability": ...} line, a
+{"control_plane": ...} line (per transport: assign and lookup rates and
+p50/p99 ms, full-beat apply ms, the master's RSS, the device rows),
 nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
 "device": {...}}.
 """
@@ -131,6 +164,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -198,6 +232,34 @@ STORAGE_EC_DELETES = 5
 STORAGE_ROT_SHARDS = (3, 12)
 STORAGE_REBUILD_LOST = (2, 5, 11, 13)
 STORAGE_STEPS = ("storage_generate", "storage_ec_scrub", "storage_rebuild")
+# The control plane (phase 9): `weed master -volumeSizeLimitMB=30000
+# -defaultReplication=010 -pulseSeconds=5` over 2 DCs x 4 racks x 8
+# `weed volume -max=7` servers played by heartbeats from this process at
+# 127.0.0.1:CLUSTER_BASE_PORT + i (nothing listens there); per transport
+# 8 client threads send the assigns and lookups; the window K1/K2 run in
+# the phase (a volume of CLUSTER_WINDOW_MIB encoded and rebuilt) reaches
+# the master in node 0's next delta beat.
+CLUSTER_DCS, CLUSTER_RACKS, CLUSTER_NODES = 2, 4, 8
+CLUSTER_MAX_VOLUMES = 7
+CLUSTER_SIZE_LIMIT_MB = 30000
+CLUSTER_REPLICATION = "010"
+CLUSTER_PULSE_S = 5
+CLUSTER_ASSIGNS = 20000
+CLUSTER_LOOKUPS = 20000
+CLUSTER_CLIENTS = 8
+CLUSTER_TRANSPORTS = ("threads", "aio")
+CLUSTER_BASE_PORT = 41000
+CLUSTER_EPOCH_S = 1_700_000_000
+CLUSTER_WINDOW_MIB = 64
+CLUSTER_WINDOW_LOST = (0, 6, 10, 13)
+# `python -m seaweedfs_tpu_torch <args>` (runpy.run_module is what -m
+# runs) with the JAX package and JAX itself blocked in sys.modules.
+MASTER_LAUNCH = (
+    "import runpy, sys\n"
+    "for name in ('jax', 'jaxlib', 'seaweedfs_tpu'):\n"
+    "    sys.modules[name] = None\n"
+    "runpy.run_module('seaweedfs_tpu_torch', run_name='__main__',"
+    " alter_sys=True)\n")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1395,6 +1457,495 @@ def phase_storage(torch, dev, args) -> dict:
     }
 
 
+# -- phase 9: the control plane ----------------------------------------------
+
+
+def cluster_heartbeats(dcs: int, racks: int, nodes: int, max_volumes: int, *,
+                       size_limit: int, seed: int, base_port: int,
+                       ec_vid: int, ec_collection: str,
+                       collections: tuple = ("",), tenants: tuple = (),
+                       device: dict | None = None) -> list[dict]:
+    """Full heartbeat bodies of dcs x racks x nodes simulated volume
+    servers at 127.0.0.1:base_port + i (DC-major), shaped as volume
+    servers send them.  Every slot holds a volume of placement 010 (its
+    two copies on node n of racks 2p and 2p+1 of one DC; ids from
+    ec_vid + 1, collections in turn, seeded sizes below size_limit); the
+    EC volume's 14 shards lie one per node on 14 nodes spread over the
+    DCs and racks.  Each node carries an SLO view (a tracker fed seeded
+    latencies), a flow row, a disk, the `tenants` rows (tenant,
+    collection, bytes, objects) and node 0 the `device` view."""
+    from seaweedfs_tpu_torch.stats.slo import SloTracker
+    check(racks % 2 == 0, "placement 010 pairs the racks")
+    rng = np.random.default_rng(seed)
+    layout = [(d, r, n) for d in range(dcs) for r in range(racks)
+              for n in range(nodes)]
+    index = {pos: i for i, pos in enumerate(layout)}
+    hbs = []
+    for i, (d, r, n) in enumerate(layout):
+        port = base_port + i
+        tracker = SloTracker("volume", clock=lambda: float(CLUSTER_EPOCH_S))
+        for s in rng.lognormal(-7.0, 1.0, 48):
+            tracker.observe("/needle", "GET", 200, float(s))
+        for s in rng.lognormal(-6.0, 1.0, 16):
+            tracker.observe("/needle", "POST", 201, float(s))
+        used = int(rng.integers(1 << 40, 6 << 40))
+        peer = base_port + (i + 1) % len(layout)
+        hbs.append({
+            "ip": "127.0.0.1", "port": port,
+            "public_url": f"127.0.0.1:{port}",
+            "data_center": f"dc{d}", "rack": f"rack{r}",
+            "seq": 1, "seq_epoch": seed * 1000 + i + 1,
+            "max_volume_count": max_volumes, "volumes": [], "ec_shards": [],
+            "disks": [{"dir": "/data", "all": 8 << 40, "used": used,
+                       "free": (8 << 40) - used,
+                       "percent_used": round(100 * used / (8 << 40), 2)}],
+            "ec_corrupt": {}, "draining": False, "low_disk": False,
+            "slo": tracker.heartbeat_view(),
+            "tenants": [{"tenant": t, "collection": c, "bytes": b,
+                         "objects": o} for t, c, b, o in tenants],
+            "flows": {"rows": [{
+                "local": f"127.0.0.1:{port}", "peer": f"127.0.0.1:{peer}",
+                "peer_role": "volume", "purpose": "replicate.fanout",
+                "direction": "out", "bytes": int(rng.integers(1 << 30)),
+                "ops": int(rng.integers(1 << 16))}], "budgets": {}}})
+    vid = ec_vid
+    for d in range(dcs):
+        for r in range(0, racks, 2):
+            for n in range(nodes):
+                for _ in range(max_volumes):
+                    vid += 1
+                    files = int(rng.integers(1, 1 << 20))
+                    deleted = int(rng.integers(0, files))
+                    v = {"id": vid,
+                         "collection": collections[vid % len(collections)],
+                         "size": int(rng.integers(1 << 20, size_limit)),
+                         "file_count": files, "delete_count": deleted,
+                         "deleted_byte_count": deleted * 4096,
+                         "read_only": False, "replica_placement": 10,
+                         "ttl": 0, "compact_revision": 0,
+                         "max_file_key": files, "version": 3,
+                         "corrupt_count": 0, "modified_at": CLUSTER_EPOCH_S,
+                         "tiered": False}
+                    for rr in (r, r + 1):
+                        hbs[index[(d, rr, n)]]["volumes"].append(dict(v))
+    for sid in range(14):
+        d, r, n = sid % dcs, (sid // dcs) % racks, sid // (dcs * racks)
+        hbs[index[(d, r, n)]]["ec_shards"].append(
+            {"id": ec_vid, "collection": ec_collection,
+             "shard_bits": 1 << sid, "codec": "rs"})
+    if device is not None:
+        hbs[0]["device"] = device
+    return hbs
+
+
+def node_key(hb: dict) -> str:
+    return f"{hb['ip']}:{hb['port']}"
+
+
+def delta_beat(hb: dict, seq: int, **extra) -> dict:
+    """A pulse's beat of the node whose full beat is `hb`: the same
+    identity and process generation, no volume change."""
+    keep = ("ip", "port", "public_url", "data_center", "rack", "seq_epoch",
+            "max_volume_count")
+    return {**{k: hb[k] for k in keep}, "seq": seq, "new_volumes": [],
+            "deleted_volumes": [], **extra}
+
+
+def goodbye_beat(hb: dict) -> dict:
+    return {"ip": hb["ip"], "port": hb["port"], "goodbye": True,
+            "seq_epoch": hb["seq_epoch"]}
+
+
+def declared_locations(hbs: list[dict]) -> tuple[dict, dict]:
+    """What the beats declare: vid -> sorted node urls of each replicated
+    volume, and shard id -> [node url] of the EC volume."""
+    vols: dict = {}
+    ec: dict = {}
+    for hb in hbs:
+        for v in hb["volumes"]:
+            vols.setdefault(v["id"], []).append(node_key(hb))
+        for e in hb["ec_shards"]:
+            for sid in range(32):
+                if e["shard_bits"] >> sid & 1:
+                    ec.setdefault(str(sid), []).append(node_key(hb))
+    return {vid: sorted(urls) for vid, urls in vols.items()}, ec
+
+
+class Pulse:
+    """Keeps the simulated volume servers alive as real ones keep
+    themselves: one delta beat per live node every CLUSTER_PULSE_S, from
+    a thread of its own.  A node's beats are serialised (the master drops
+    a beat whose seq is not newer)."""
+
+    def __init__(self, url: str, hbs: list[dict]):
+        self.url, self.hbs = url, hbs
+        self.live = set(range(len(hbs)))
+        self.seq = [hb["seq"] for hb in hbs]
+        self.lock = threading.Lock()
+        self.stop = threading.Event()
+        self.errors: list = []
+        self.beats = 0
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def post(self, body: dict) -> None:
+        from seaweedfs_tpu_torch.cluster import rpc
+        rpc.call(f"{self.url}/heartbeat", "POST", json.dumps(body).encode())
+
+    def beat(self, i: int, **extra) -> None:
+        with self.lock:
+            self.seq[i] += 1
+            self.post(delta_beat(self.hbs[i], self.seq[i], **extra))
+            self.beats += 1
+
+    def goodbye(self, i: int) -> None:
+        with self.lock:
+            self.live.discard(i)
+            self.post(goodbye_beat(self.hbs[i]))
+
+    def _run(self) -> None:
+        while not self.stop.wait(CLUSTER_PULSE_S):
+            for i in sorted(self.live):
+                try:
+                    self.beat(i)
+                except Exception as e:  # noqa: BLE001 — checked at the end
+                    self.errors.append(f"node {i}: {type(e).__name__}: {e}")
+
+
+def drive(url: str, paths: list[str], clients: int) -> tuple[list, dict]:
+    """GET every path from `clients` threads on rpc.call's keep-alive
+    pool; (answers in path order, {requests, per_s, p50_ms, p99_ms})."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    answers: list = [None] * len(paths)
+    lat = [0.0] * len(paths)
+    errors: list = []
+
+    def worker(k: int) -> None:
+        j = k
+        try:
+            for j in range(k, len(paths), clients):
+                t = time.perf_counter()
+                answers[j] = rpc.call(url + paths[j])
+                lat[j] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"{paths[j]}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    check(not errors, f"{len(errors)} requests failed: {errors[:3]}")
+    return answers, {"requests": len(paths), "wall_s": wall,
+                     "per_s": len(paths) / wall, "p50_ms": pct_ms(lat, 50),
+                     "p99_ms": pct_ms(lat, 99)}
+
+
+def start_master(transport: str, port: int, work: str):
+    """The port's master as `python -m seaweedfs_tpu_torch master` with the
+    upstream flags, in a process whose sys.modules blocks jax, jaxlib and
+    seaweedfs_tpu; returns (process, url, log path) once /dir/status
+    answers."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    mdir = os.path.join(work, f"master_{transport}")
+    os.makedirs(mdir)
+    log_path = mdir + ".log"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    with open(log_path, "w") as log_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", MASTER_LAUNCH, "master", f"-port={port}",
+             f"-mdir={mdir}", f"-volumeSizeLimitMB={CLUSTER_SIZE_LIMIT_MB}",
+             f"-defaultReplication={CLUSTER_REPLICATION}",
+             f"-pulseSeconds={CLUSTER_PULSE_S}", f"-transport={transport}"],
+            cwd=REPO, env=env, stdout=log_f, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    deadline = time.monotonic() + 60
+    while True:
+        if proc.poll() is not None:
+            with open(log_path) as f:
+                tail = f.read()[-2000:]
+            raise RuntimeError(f"chip_smoke: master ({transport}) exited "
+                               f"{proc.returncode}: {tail}")
+        try:
+            rpc.call(url + "/dir/status", timeout=2.0)
+            return proc, url, log_path
+        except OSError:
+            check(time.monotonic() < deadline,
+                  f"master ({transport}) did not answer within 60 s")
+            time.sleep(0.1)
+
+
+def stop_master(proc) -> None:
+    """SIGTERM (the master drains and stops), then SIGKILL after 10 s."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def rss_mib(pid: int) -> float:
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    raise RuntimeError(f"chip_smoke: no VmRSS for process {pid}")
+
+
+def device_counts(doc: dict) -> dict:
+    """A kernel table (/cluster/device's merged one, or a ledger's
+    heartbeat view) as {catalog key: count}."""
+    out: dict = {}
+    for r in doc["kernels"]:
+        out[r["kernel"]] = out.get(r["kernel"], 0) + r["count"]
+    return out
+
+
+def cluster_window(torch, dev, seed: int) -> tuple[dict, dict]:
+    """Phase 9's own K1/K2 window on the card: a CLUSTER_WINDOW_MIB
+    volume encoded by write_ec_files (K2 10->4) and four shards rebuilt
+    (K1 10->4), with the launch counts reset just before; (launches,
+    ledger rows per catalog key)."""
+    from seaweedfs_tpu_torch.ec import to_ext
+    from seaweedfs_tpu_torch.ec.encoder import (rebuild_ec_files,
+                                                write_ec_files,
+                                                write_sorted_file_from_idx)
+    work = os.path.join(REPO, "_smoke_work", "cluster_window")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        base = os.path.join(work, "1")
+        write_volume(base, CLUSTER_WINDOW_MIB * MIB, seed)
+        write_sorted_file_from_idx(base)
+        reset_counts()
+        before = obs_snapshot(torch)
+        write_ec_files(base, device=dev)
+        for sid in CLUSTER_WINDOW_LOST:
+            os.remove(base + to_ext(sid))
+        rebuilt = rebuild_ec_files(base, device=dev)
+        window = obs_window(before, obs_snapshot(torch))
+        launches = read_counts()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    check(rebuilt == list(CLUSTER_WINDOW_LOST), f"window rebuilt {rebuilt}")
+    return launches, window["rows"]
+
+
+def phase_cluster(torch, dev, args) -> dict:
+    """Phase 9: the port's master on each transport, fed the simulated
+    cluster's heartbeats and driven by 8 client threads; every answer
+    held against what the beats declared, the card's K1/K2 ledger rows
+    against the launch counts through /cluster/device."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.stats import roofline
+
+    t_phase = time.perf_counter()
+    work = os.path.join(REPO, "_smoke_work", "cluster")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    hbs = cluster_heartbeats(
+        CLUSTER_DCS, CLUSTER_RACKS, CLUSTER_NODES, CLUSTER_MAX_VOLUMES,
+        size_limit=CLUSTER_SIZE_LIMIT_MB * MIB, seed=args.seed,
+        base_port=CLUSTER_BASE_PORT, ec_vid=STORAGE_VID,
+        ec_collection=STORAGE_COLLECTION)
+    vols, ec = declared_locations(hbs)
+    vids = sorted(vols)
+    check(len(vids) == CLUSTER_DCS * CLUSTER_RACKS * CLUSTER_NODES
+          * CLUSTER_MAX_VOLUMES // 2 and len(ec) == 14,
+          f"{len(vids)} volumes, {len(ec)} EC shards declared")
+    gone = next(i for i, hb in enumerate(hbs) if i and hb["ec_shards"])
+    gone_url = node_key(hbs[gone])
+    out: dict = {"config": {
+        "master": f"weed master -volumeSizeLimitMB={CLUSTER_SIZE_LIMIT_MB} "
+                  f"-defaultReplication={CLUSTER_REPLICATION} "
+                  f"-pulseSeconds={CLUSTER_PULSE_S}",
+        "volume_servers": len(hbs), "layout": f"{CLUSTER_DCS} DCs x "
+        f"{CLUSTER_RACKS} racks x {CLUSTER_NODES} nodes, -max="
+        f"{CLUSTER_MAX_VOLUMES}", "volumes": len(vids),
+        "ec_volume": STORAGE_VID, "clients": CLUSTER_CLIENTS,
+        "entry_point": "runpy.run_module('seaweedfs_tpu_torch') (what "
+                       "python -m runs) with jax, jaxlib and seaweedfs_tpu "
+                       "set to None in sys.modules"}}
+    window_launches = {"rs_bitmatrix": 0, "rs_bitmatrix_crc": 0}
+    log(f"control plane: {out['config']['master']} over {len(hbs)} "
+        f"simulated volume servers; the master starts as "
+        f"{out['config']['entry_point']}")
+    try:
+        for transport in CLUSTER_TRANSPORTS:
+            res: dict = {}
+            walls: dict = {}  # where the phase's seconds go, per step
+            t_step = [time.perf_counter()]
+
+            def step(name: str) -> None:
+                now = time.perf_counter()
+                walls[name] = now - t_step[0]
+                t_step[0] = now
+
+            proc, url, log_path = start_master(transport, rpc.free_port(),
+                                               work)
+            step("start_master")
+            pulse = Pulse(url, hbs)
+            try:
+                # Full beats: node 0 carries this process's ledger.
+                hbs[0]["device"] = roofline.LEDGER.heartbeat_view()
+                local = device_counts(hbs[0]["device"])
+                apply_ms = []
+                for hb in hbs:
+                    t = time.perf_counter()
+                    pulse.post(hb)
+                    apply_ms.append((time.perf_counter() - t) * 1e3)
+                res["full_heartbeat_apply_ms"] = {
+                    "p50": float(np.median(apply_ms)), "max": max(apply_ms),
+                    "total": sum(apply_ms)}
+                pulse.thread.start()
+                step("full_beats")
+                top = rpc.call(url + "/dir/status")["topology"]
+                check(top["volumes"] == 2 * len(vids) and top["ecShards"] == 14
+                      and top["max"] == len(hbs) * CLUSTER_MAX_VOLUMES,
+                      f"{transport}: topology {top}")
+
+                answers, res["assign"] = drive(
+                    url, ["/dir/assign?count=1&replication="
+                          + CLUSTER_REPLICATION] * CLUSTER_ASSIGNS,
+                    CLUSTER_CLIENTS)
+                fids = set()
+                for a in answers:
+                    vid_s, rest = a["fid"].split(",")
+                    vid = int(vid_s)
+                    check(vid in vols and a["count"] == 1
+                          and len(rest) > 8 and int(rest[:-8], 16) > 0,
+                          f"{transport}: assign answered {a}")
+                    check(sorted([a["url"]] + [r["url"] for r in a["replicas"]])
+                          == vols[vid], f"{transport}: assign {a} vs {vols[vid]}")
+                    fids.add(a["fid"])
+                check(len(fids) == CLUSTER_ASSIGNS,
+                      f"{transport}: {CLUSTER_ASSIGNS - len(fids)} repeated fids")
+                step("assigns")
+
+                targets = [vids[j % len(vids)] if j % (len(vids) + 1)
+                           else STORAGE_VID for j in range(CLUSTER_LOOKUPS)]
+                answers, res["lookup"] = drive(
+                    url, [f"/dir/lookup?volumeId={v}" for v in targets],
+                    CLUSTER_CLIENTS)
+                for v, a in zip(targets, answers):
+                    if v == STORAGE_VID:
+                        got = {s: [x["url"] for x in locs]
+                               for s, locs in a["ecShards"].items()}
+                        check(got == ec, f"{transport}: EC lookup {got}")
+                    else:
+                        check(sorted(x["url"] for x in a["locations"])
+                              == vols[v], f"{transport}: lookup {v}: {a}")
+                step("lookups")
+
+                vl = rpc.call(url + "/vol/list")["topology"]["data_centers"]
+                listed = [n for dc in vl for rack in dc["racks"]
+                          for n in rack["nodes"]]
+                check(len(listed) == len(hbs) and sum(
+                    len(n["volumes"]) for n in listed) == 2 * len(vids)
+                    and sum(len(n["ec_shards"]) for n in listed) == 14,
+                    f"{transport}: /vol/list lists {len(listed)} nodes")
+                status, health = rpc.call_status(url + "/cluster/healthz")
+                check(status == 200 and health["healthy"]
+                      and len(health["nodes"]) == len(hbs),
+                      f"{transport}: healthz {status} "
+                      f"{health.get('problems')}")
+
+                pulse.goodbye(gone)
+                held = [v for v, urls in vols.items() if gone_url in urls]
+                answers, res["lookup_after_goodbye"] = drive(
+                    url, [f"/dir/lookup?volumeId={v}"
+                          for v in held + [STORAGE_VID]], CLUSTER_CLIENTS)
+                for v, a in zip(held, answers):
+                    check(sorted(x["url"] for x in a["locations"])
+                          == [u for u in vols[v] if u != gone_url],
+                          f"{transport}: lookup {v} after goodbye: {a}")
+                check(all(x["url"] != gone_url for locs in
+                          answers[-1]["ecShards"].values() for x in locs)
+                      and len(answers[-1]["ecShards"]) == 13,
+                      f"{transport}: EC lookup after goodbye {answers[-1]}")
+
+                # The control plane's own footprint, before the rollup's
+                # probe_peaks brings the card up in the master process.
+                res["master_rss_mib_before_device"] = rss_mib(proc.pid)
+                step("list_healthz_goodbye")
+                doc = rpc.call(url + "/cluster/device", timeout=120.0)
+                step("first_cluster_device")
+                peaks = doc["peaks"]
+                check(peaks.get("backend") == dev.type and (
+                    dev.type != "cuda" or "H100" in peaks.get("device_kind")),
+                      f"{transport}: /cluster/device peaks {peaks}")
+                check(node_key(hbs[0]) in doc["nodes"],
+                      f"{transport}: node 0 missing from /cluster/device")
+                counts = device_counts(doc)
+                check(counts == local and local.get("encode_crc_kernel")
+                      and local.get("reconstruct_kernel"),
+                      f"{transport}: /cluster/device rows {counts}, the "
+                      f"ledger {local}")
+                launches, rows = cluster_window(torch, dev, args.seed)
+                step("window")
+                for name in window_launches:
+                    window_launches[name] += launches[name]["launches"]
+                pulse.beat(0, device=roofline.LEDGER.heartbeat_view())
+                after = device_counts(rpc.call(url + "/cluster/device",
+                                               timeout=120.0))
+                moved = {k: v - counts.get(k, 0) for k, v in after.items()
+                         if v != counts.get(k, 0)}
+                k1 = launches["rs_bitmatrix"]["launches"]
+                k2 = launches["rs_bitmatrix_crc"]["launches"]
+                check(moved == rows and moved.get("encode_crc_kernel") == k2
+                      and moved.get("reconstruct_kernel") == k1 and k1 and k2,
+                      f"{transport}: window moved /cluster/device by {moved}; "
+                      f"ledger {rows}, launches K1 {k1} K2 {k2}")
+                res["device"] = {"peaks_backend": peaks["backend"],
+                                 "device_kind": peaks["device_kind"],
+                                 "rows_at_full_beat": counts,
+                                 "window_launches": {"rs_bitmatrix": k1,
+                                                     "rs_bitmatrix_crc": k2},
+                                 "window_rows": moved}
+
+                grows = rpc.call(url + "/debug/events?type=volume.grow")
+                dials = rpc.call(url + "/debug/events?type=volume.assign")
+                check(not grows["events"] and not dials["events"],
+                      f"{transport}: the master grew or allocated volumes")
+                res["master_rss_mib"] = rss_mib(proc.pid)
+                pulse.stop.set()
+                pulse.thread.join()
+                check(not pulse.errors, f"{transport}: pulse {pulse.errors[:3]}")
+                res["pulse_beats"] = pulse.beats
+            finally:
+                pulse.stop.set()
+                if pulse.thread.is_alive():
+                    pulse.thread.join()
+                stop_master(proc)
+            step("rest_and_stop")
+            res["walls_s"] = walls
+            with open(log_path) as f:
+                log_text = f.read()
+            check("Traceback" not in log_text,
+                  f"{transport}: the master logged {log_text[-2000:]}")
+            out[transport] = res
+            log(f"control plane ({transport}): assign "
+                f"{res['assign']['per_s']:.0f}/s p50 "
+                f"{res['assign']['p50_ms']:.3f} ms p99 "
+                f"{res['assign']['p99_ms']:.3f} ms; lookup "
+                f"{res['lookup']['per_s']:.0f}/s p50 "
+                f"{res['lookup']['p50_ms']:.3f} ms p99 "
+                f"{res['lookup']['p99_ms']:.3f} ms; full beat "
+                f"{res['full_heartbeat_apply_ms']['p50']:.3f} ms; master RSS "
+                f"{res['master_rss_mib_before_device']:.0f} MiB, "
+                f"{res['master_rss_mib']:.0f} MiB after /cluster/device")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["window_launches"] = window_launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def entry(t, plain, lib, k_in, k_out, width, crc, volumes=1):
     """A timing row: kernel, plain and library ms, and the bound for
     `volumes` volumes of (k_in -> k_out, width)."""
@@ -1805,6 +2356,7 @@ def main() -> int:
         main_path = phase_main_path(torch, dev, args)
         batch = phase_batch(torch, dev, args)
         storage = phase_storage(torch, dev, args)
+        cluster = phase_cluster(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -1839,7 +2391,8 @@ def main() -> int:
              batch[s]["launches"]["rs_bitmatrix"]["launches"]
              for s in PHASE6_STEPS) + sum(
              storage["launches"][s]["rs_bitmatrix"]["launches"]
-             for s in STORAGE_STEPS),
+             for s in STORAGE_STEPS)
+         + cluster["window_launches"]["rs_bitmatrix"],
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
@@ -1848,7 +2401,8 @@ def main() -> int:
              batch[s]["launches"]["rs_bitmatrix_crc"]["launches"]
              for s in PHASE6_STEPS) + sum(
              storage["launches"][s]["rs_bitmatrix_crc"]["launches"]
-             for s in STORAGE_STEPS),
+             for s in STORAGE_STEPS)
+         + cluster["window_launches"]["rs_bitmatrix_crc"],
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
     obs = phase_observability(torch, probe, main_path, batch, storage, timings)
@@ -1858,6 +2412,7 @@ def main() -> int:
     print(json.dumps({"batch_path": batch}))
     print(json.dumps({"storage_path": storage}))
     print(json.dumps({"observability": obs}))
+    print(json.dumps({"control_plane": cluster}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,9 @@
+"""`python -m seaweedfs_tpu_torch <command>` — the port's `weed` binary
+(reference: weed/weed.go:38-80).  So far it has `master`."""
+
+import sys
+
+from .command import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -138,6 +138,50 @@ def test_port_runs_with_jax_and_reference_blocked(tmp_path):
     assert "ISOLATED-OK" in r.stdout
 
 
+_BLOCKED_MASTER = r"""
+import runpy, sys
+for name in ("jax", "jaxlib", "seaweedfs_tpu"):
+    sys.modules[name] = None
+runpy.run_module("seaweedfs_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def test_port_master_entry_point_with_jax_and_reference_blocked(tmp_path):
+    """`python -m seaweedfs_tpu_torch master` (runpy, as -m runs it) in a
+    process where jax, jaxlib and seaweedfs_tpu cannot be imported
+    answers /dir/status and /cluster/healthz, and stops on SIGTERM."""
+    import time
+
+    from seaweedfs_tpu_torch.cluster import rpc
+    port = rpc.free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with open(tmp_path / "master.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _BLOCKED_MASTER, "master",
+             f"-port={port}", f"-mdir={tmp_path / 'm'}",
+             "-volumeSizeLimitMB=30000", "-defaultReplication=010"],
+            cwd=str(tmp_path), env=env, stdout=log, stderr=subprocess.STDOUT)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert proc.poll() is None, (tmp_path / "master.log").read_text()
+            try:
+                status = rpc.call(url + "/dir/status", timeout=2.0)
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+        assert status["topology"]["volumes"] == 0
+        code, health = rpc.call_status(url + "/cluster/healthz")
+        assert code == 503 and health["problems"] == ["no live data nodes"]
+        assert health["is_leader"]
+    finally:
+        proc.terminate()
+        assert proc.wait(30) == 0
+    assert "Traceback" not in (tmp_path / "master.log").read_text()
+
+
 def _sources():
     out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                            "kernel_variants.py")]

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cluster import count_plain_launches
 from _torch_storage import PAIR, ec_kw, ec_volume, flavor, needle, \
     outcome, repair_ec_block, twin  # noqa: F401
 
@@ -247,7 +248,6 @@ def test_chip_smoke_phase_storage_on_cpu(tmp_path, monkeypatch):
     only kernel launches, so each OUTERMOST plain call is counted as one
     here; fused CRC is forced so ec.generate takes K2 as on the card."""
     from seaweedfs_tpu_torch.ec import encoder
-    from seaweedfs_tpu_torch.ops import coder_cuda as cc
     from seaweedfs_tpu_torch.stats import roofline
 
     cs = _chip_smoke()
@@ -255,28 +255,7 @@ def test_chip_smoke_phase_storage_on_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setenv("SEAWEEDFS_TPU_ROOFLINE_CACHE", str(tmp_path / "pk"))
     monkeypatch.setattr(encoder, "fused_crc_enabled", lambda *a, **k: True)
-    depth = [0]
-
-    def counted(fn, wrapper, variants, pick):
-        def inner(masks, shards, *a, **k):
-            depth[0] += 1
-            try:
-                out = fn(masks, shards, *a, **k)
-            finally:
-                depth[0] -= 1
-            if depth[0] == 0:
-                wrapper.launches += 1
-                wrapper.variant_launches[variants[pick(
-                    shards.shape[-2], masks.shape[0] // 8)]] += 1
-            return out
-        return inner
-
-    monkeypatch.setattr(cc, "apply_bitmatrix_torch", counted(
-        cc.apply_bitmatrix_torch, cc.apply_bitmatrix, cc.K1_VARIANTS,
-        cc.k1_variant))
-    monkeypatch.setattr(cc, "apply_bitmatrix_crc_torch", counted(
-        cc.apply_bitmatrix_crc_torch, cc.apply_bitmatrix_crc,
-        cc.K2_VARIANTS, cc.k2_variant))
+    count_plain_launches(monkeypatch)
     monkeypatch.setitem(roofline.PROBE_SIZES, "cpu", {
         "m": 32, "membw_bytes": 4096, "copy_bytes": 4096, "reps": 1})
     roofline.probe_peaks("cpu", force=True)
