@@ -4,6 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--dat-mib 1024] [--batch-div 1]
+                          [--live-mib 1024]
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -137,8 +138,39 @@ Phases; any failure raises and the script exits non-zero:
              the card in it) are printed per transport; no bound on them
              is asserted.
 
-Phase 6 runs before phase 8, phase 8 before phase 9, and phase 9 before
-phase 5, whose timings include phase 6's shapes; phase 7 runs last.
+10. live   — a live port cluster: upstream `weed master
+             -volumeSizeLimitMB=30000 -defaultReplication=000` and six
+             `weed volume -max=7` servers in 2 racks x 3, each
+             `python -m seaweedfs_tpu_torch master|volume -device=cuda`
+             in its own process (jax and the JAX package blocked), on
+             one host and card, the size limit cut to --live-mib.  Three
+             volumes of one collection are grown and filled through
+             WeedClient (8 threads) until each passes 95 % of the limit;
+             each is sealed and a copy of its .dat encoded here by
+             write_ec_files.  Volume A: `ec.encode -volumeId A` through a
+             `python -m seaweedfs_tpu_torch shell` process (K2 10->4 in
+             the holder); B and C: `ec.encode -volumeId B,C -batch
+             -maxBatchMB 2048` through CommandEnv(device=dev) here (K2
+             with V = 2).  Every
+             shard file and .ecc entry on the servers' disks must equal
+             the copy's, and sit where the master says.  A server holding
+             1-3 shards of every volume is killed with SIGKILL; 300
+             seeded needles are read through the client (K1 10->1 in the
+             volume servers for each interval on a lost shard), the dead
+             node is swept, `ec.rebuild -batch` runs here (K2 with the
+             decode masks), every rebuilt shard must equal its original
+             and every needle read back byte-equal.  Launches are counted
+             here by the wrappers and in the volume servers through the
+             master's /cluster/device (per node, from a beat after each
+             step; the killed node read before the kill) and must equal
+             what each step needs: the holder's encode as many K2 as the
+             copy's, the batch one step per chunk of the longer volume
+             with V = 2 while both last, one K1 per lost interval read,
+             the rebuild one launch per sub-batch.
+
+Phase 6 runs before phase 8, phase 8 before phase 9, phase 9 before phase
+10, and phase 10 before phase 5, whose timings include phase 6's shapes;
+phase 7 runs last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
@@ -148,9 +180,12 @@ Prints a {"main_path": ...} line, a {"batch_path": ...} line, a
 deleted and quarantined, bytes reclaimed, launches per step and
 instantiation, device busy share), an {"observability": ...} line, a
 {"control_plane": ...} line (per transport: assign and lookup rates and
-p50/p99 ms, full-beat apply ms, the master's RSS, the device rows),
-nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
-"device": {...}}.
+p50/p99 ms, full-beat apply ms, the master's RSS, the device rows), a
+{"live_cluster": ...} line (walls and GB/s of the write, both encodes,
+the rebuild and the read-back, degraded-read p50/p99, launches per kernel
+and step in the shell's process and the volume servers, device busy
+share, every process's RSS), nvidia-smi's line, a {"kernels": [...]}
+line, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -252,6 +287,30 @@ CLUSTER_BASE_PORT = 41000
 CLUSTER_EPOCH_S = 1_700_000_000
 CLUSTER_WINDOW_MIB = 64
 CLUSTER_WINDOW_LOST = (0, 6, 10, 13)
+# The live cluster (phase 10): upstream `weed master
+# -volumeSizeLimitMB=30000 -defaultReplication=000` and LIVE_NODES `weed
+# volume -max=7` servers in LIVE_RACKS racks, then `weed shell`: lock,
+# ec.encode of one collection's volumes past -fullPercent 95, a node
+# lost, ec.rebuild (SeaweedFS's erasure-coding wiki page).  The size limit
+# is cut to LIVE_LIMIT_MB and every server shares this host and card.
+# Needles are seeded slices of a LIVE_BLOB_MIB blob, written by
+# LIVE_WRITERS client threads (which also read everything back).
+LIVE_NODES = 6
+LIVE_RACKS = 2
+LIVE_MAX_VOLUMES = 7
+LIVE_REPLICATION = "000"
+LIVE_LIMIT_MB = 1024  # --live-mib
+LIVE_COLLECTION = "ec10"
+LIVE_VOLUMES = 3
+LIVE_FULL_PERCENT = 95
+LIVE_WRITERS = 8
+LIVE_BLOB_MIB = 64
+LIVE_READS = 300
+# `ec.encode -batch -maxBatchMB`: both volumes in one group (the
+# default 256 would give each 1 GiB volume a group of its own), as phase
+# 6's BATCH_BYTES; `ec.rebuild -batch` keeps its default.
+LIVE_BATCH_MB = 2048
+LIVE_REBUILD_BUDGET = 256 << 20  # ec.rebuild's -maxBatchMB default
 # `python -m seaweedfs_tpu_torch <args>` (runpy.run_module is what -m
 # runs) with the JAX package and JAX itself blocked in sys.modules.
 MASTER_LAUNCH = (
@@ -1946,6 +2005,566 @@ def phase_cluster(torch, dev, args) -> dict:
     return out
 
 
+# -- phase 10: a live port cluster on the card -------------------------------
+
+
+def port_process(args: list[str], log_path: str):
+    """`python -m seaweedfs_tpu_torch <args>` with jax, jaxlib and
+    seaweedfs_tpu blocked, its output in log_path."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    with open(log_path, "w") as log_f:
+        return subprocess.Popen(
+            [sys.executable, "-c", MASTER_LAUNCH, *args], cwd=REPO, env=env,
+            stdout=log_f, stderr=subprocess.STDOUT)
+
+
+def wait_for(pred, what: str, procs, timeout: float = 90.0):
+    """Poll pred() until it returns a true value; fail if a process of
+    `procs` exits or `timeout` passes."""
+    deadline = time.monotonic() + timeout
+    while True:
+        for p in procs:
+            check(p.poll() is None, f"{what}: a cluster process exited "
+                                    f"({p.args[3:6]})")
+        try:
+            got = pred()
+            if got:
+                return got
+        except OSError:
+            pass
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.1)
+
+
+def node_device_rows(murl: str, nodes, since: float, procs) -> dict:
+    """/cluster/device's kernel rows of each of `nodes` (volume server
+    URLs) from a heartbeat the master received after `since` (its
+    clock), as {node: {catalog key: count}}: every beat carries the
+    node's absolute ledger rows, so a beat after a step holds them all."""
+    from seaweedfs_tpu_torch.cluster import rpc
+
+    def fresh():
+        doc = rpc.call(murl + "/cluster/device", timeout=120.0)
+        got = doc["nodes"]
+        if all(n in got and (got[n]["ts"] or 0) > since for n in nodes):
+            return {n: device_counts(got[n]) for n in nodes}
+        return None
+    return wait_for(fresh, "fresh heartbeats on /cluster/device", procs)
+
+
+def rows_delta(before: dict, after: dict) -> dict:
+    """Per catalog key, the rows `after` adds over `before`, summed over
+    the nodes of `after` (a node missing from `before` starts at 0)."""
+    out: dict = {}
+    for node, rows in after.items():
+        for key, n in rows.items():
+            d = n - before.get(node, {}).get(key, 0)
+            if d:
+                out[key] = out.get(key, 0) + d
+    return out
+
+
+def vs_kernel_launches(rows: dict) -> dict:
+    """A volume server's catalog keys as launches per kernel: the
+    single-volume encode with fused CRC is K2, decode and the unfused
+    encode K1 (the batched keys run in the shell's process)."""
+    k1 = rows.get("reconstruct_kernel", 0) + rows.get("encode_kernel", 0)
+    k2 = rows.get("encode_crc_kernel", 0)
+    return {"rs_bitmatrix": k1, "rs_bitmatrix_crc": k2}
+
+
+def live_needles(seed: int, blob_bytes: int):
+    """Payloads log-uniform 1 KiB..4 MiB from `seed`, as slices at seeded
+    offsets of one random blob: needle i is blob[off:off + size]."""
+    rng = np.random.default_rng(seed)
+    blob = rng.bytes(blob_bytes)
+
+    def gen():
+        while True:
+            size = int(math.exp(rng.uniform(math.log(1 << 10),
+                                            math.log(4 << 20))))
+            off = int(rng.integers(0, blob_bytes - size))
+            yield off, size
+    return memoryview(blob), gen()
+
+
+def shard_files(dirs: dict, vid: int) -> dict:
+    """{shard id: (node, path)} of every shard file of `vid` on disk
+    across the volume servers' directories (node -> dir)."""
+    import glob
+    out = {}
+    for node, d in dirs.items():
+        for path in glob.glob(os.path.join(d, f"*{vid}.ec[0-9][0-9]")):
+            stem = os.path.basename(path)[:-5]
+            if stem.split("_")[-1] != str(vid):
+                continue
+            sid = int(path[-2:])
+            check(sid not in out, f"volume {vid} shard {sid} held twice")
+            out[sid] = (node, path)
+    return out
+
+
+def ecc_entries(path: str) -> dict:
+    with open(path) as f:
+        return {int(s): c for s, c in json.load(f)["shards"].items()}
+
+
+def rebuild_launches(lost: dict, shard_bytes: dict,
+                     budget: int = LIVE_REBUILD_BUDGET) -> int:
+    """Launches `ec.rebuild -batch` makes for RS volumes that lost the
+    shards `lost[vid]`: one group per lost set, each cut into sub-batches
+    of as many volumes as fit `budget` bytes of survivors and rebuilt
+    shards (the first volume's size bounds each)."""
+    groups: dict = {}
+    for vid in sorted(lost):
+        groups.setdefault(tuple(lost[vid]), []).append(vid)
+    n = 0
+    for missing, group in groups.items():
+        i = 0
+        while i < len(group):
+            per_vol = shard_bytes[group[i]] * (10 + len(missing))
+            i += max(1, min(len(group) - i, budget // per_vol))
+            n += 1
+    return n
+
+
+def phase_live_cluster(torch, dev, args) -> dict:
+    """Phase 10: the port's master, LIVE_NODES volume servers and shell
+    as `python -m seaweedfs_tpu_torch` processes on the card's host: write
+    three volumes of one collection to LIVE_FULL_PERCENT of the limit,
+    ec.encode one per volume (K2 in its holder) and two -batch (K2 with a
+    volume axis here), kill -9 a holder, degraded reads (K1 in the volume
+    servers), ec.rebuild -batch (K2 here), read everything back.  Every
+    shard and .ecc entry is held against write_ec_files of a copy of its
+    sealed .dat on `dev`, every launch counted: here by the wrappers, in
+    the volume servers through /cluster/device, and reconciled with what
+    each step must launch."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.cluster.client import WeedClient
+    from seaweedfs_tpu_torch.core import types as t
+    from seaweedfs_tpu_torch.ec.encoder import (write_ec_files,
+                                                write_sorted_file_from_idx)
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.stats import roofline
+
+    t_phase = time.perf_counter()
+    limit_mb = args.live_mib
+    limit = limit_mb * MIB
+    work = os.path.join(REPO, "_smoke_work", "live")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev_flag = f"-device={dev.type}"
+    procs: list = []
+    env = None
+    out: dict = {"reduced": {"volume_size_limit_mb": [30000, limit_mb],
+                             "hosts": [LIVE_NODES, 1]},
+                 "walls_s": {}, "gb_s": {}, "launches": {},
+                 "device_busy_share": {}}
+    try:
+        mport = rpc.free_port()
+        murl = f"http://127.0.0.1:{mport}"
+        master = port_process(
+            ["master", f"-port={mport}", f"-mdir={work}/master",
+             f"-volumeSizeLimitMB={limit_mb}",
+             f"-defaultReplication={LIVE_REPLICATION}"],
+            os.path.join(work, "master.log"))
+        procs.append(master)
+        wait_for(lambda: rpc.call(murl + "/dir/status", timeout=2.0),
+                 "the master", procs)
+        dirs: dict = {}
+        vs_procs: dict = {}
+        for i in range(LIVE_NODES):
+            port = rpc.free_port()
+            node = f"127.0.0.1:{port}"
+            dirs[node] = os.path.join(work, f"vs{i}")
+            os.makedirs(dirs[node])
+            vs_procs[node] = port_process(
+                ["volume", dev_flag, f"-port={port}", f"-dir={dirs[node]}",
+                 f"-max={LIVE_MAX_VOLUMES}", f"-mserver=127.0.0.1:{mport}",
+                 "-dataCenter=dc1",
+                 f"-rack=rack{i * LIVE_RACKS // LIVE_NODES}"],
+                os.path.join(work, f"vs{i}.log"))
+            procs.append(vs_procs[node])
+        wait_for(lambda: len(rpc.call_status(
+            murl + "/cluster/healthz", timeout=2.0)[1]["nodes"]) == LIVE_NODES,
+            f"{LIVE_NODES} volume servers", procs)
+        out["startup_s"] = time.perf_counter() - t_phase
+
+        # -- write: three volumes of one collection past the fill mark ----
+        rpc.call(f"{murl}/vol/grow?count={LIVE_VOLUMES}"
+                 f"&collection={LIVE_COLLECTION}", "POST")
+        client = WeedClient(murl)
+        blob, sizes = live_needles(args.seed, LIVE_BLOB_MIB * MIB)
+        fids: dict = {}  # fid -> (offset, size)
+        per_vid: dict = {}
+        lock = threading.Lock()
+        stop = threading.Event()
+        errors: list = []
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    off, size = next(sizes)
+                try:
+                    fid = client.upload_data(bytes(blob[off:off + size]),
+                                             collection=LIVE_COLLECTION)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(repr(e))
+                    stop.set()
+                    return
+                vid = int(fid.split(",")[0])
+                with lock:
+                    fids[fid] = (off, size)
+                    per_vid[vid] = per_vid.get(vid, 0) + size
+                    full = [v for v, n in per_vid.items()
+                            if n >= limit * LIVE_FULL_PERCENT / 100]
+                    if len(full) >= LIVE_VOLUMES:
+                        stop.set()
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=writer)
+                   for _ in range(LIVE_WRITERS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        check(not errors, f"uploads failed: {errors[:3]}")
+        wall = time.perf_counter() - t0
+        vids = sorted(v for v, n in per_vid.items()
+                      if n >= limit * LIVE_FULL_PERCENT / 100)[:LIVE_VOLUMES]
+        check(len(vids) == LIVE_VOLUMES, f"volumes filled: {per_vid}")
+        written = sum(per_vid.values())
+        out["walls_s"]["write"] = wall
+        out["gb_s"]["write"] = written / wall / 1e9
+        out["needles"] = len(fids)
+        out["volumes"] = {str(v): per_vid[v] for v in vids}
+        log(f"live: wrote {len(fids)} needles, {written / MIB:.0f} MiB in "
+            f"{wall:.2f} s; volumes {vids}")
+
+        # -- seal and copy each volume; the card's single-volume encode ---
+        env = CommandEnv(murl, device=dev)
+        reference: dict = {}
+        ref_launches: dict = {}
+        for vid in vids:
+            for node in env.volume_locations(vid):
+                env.vs_call(node, "/admin/readonly",
+                            {"volume": vid, "readonly": True})
+            holder = env.volume_locations(vid)[0]
+            base = os.path.join(work, "ref", str(vid))
+            os.makedirs(os.path.dirname(base), exist_ok=True)
+            for ext in (".dat", ".idx"):
+                rpc.call_to_file(f"http://{holder}/admin/volume_file?"
+                                 f"volume={vid}&ext={ext}", base + ext)
+            write_sorted_file_from_idx(base)
+            reset_counts()
+            write_ec_files(base, device=dev)
+            ref_launches[vid] = read_counts()
+            reference[vid] = {
+                "shards": {s: sha256_file(f"{base}.ec{s:02d}")
+                           for s in range(14)},
+                "ecc": ecc_entries(base + ".ecc"),
+                "ecx": sha256_file(base + ".ecx"), "base": base}
+            # Kept for locating needles: .ecx, .vif and one shard's size.
+            for path in [base + ".dat"] + [f"{base}.ec{s:02d}"
+                                           for s in range(1, 14)]:
+                os.remove(path)
+        # K2 on the card (fused CRC), K1 on the CPU (the CRC on the host).
+        ref_k = {v: {k: c["launches"] for k, c in ref_launches[v].items()}
+                 for v in vids}
+        n_ref = {v: sum(ref_k[v].values()) for v in vids}
+        check(all(n_ref.values()), f"reference encodes launched {ref_k}")
+        vol_a, vol_b, vol_c = vids
+        vs_nodes = list(vs_procs)
+        rows0 = node_device_rows(murl, vs_nodes, 0.0, procs)
+
+        # -- ec.encode -volumeId A: a shell process, K2 in the holder -----
+        shell_log = os.path.join(work, "shell.log")
+        t0 = time.perf_counter()
+        shell = port_process(
+            ["shell", dev_flag, f"-master=127.0.0.1:{mport}", "lock",
+             f"ec.encode -volumeId {vol_a}"], shell_log)
+        shell_rss = 0.0
+        while shell.poll() is None:  # its RSS, sampled while it runs
+            with contextlib.suppress(OSError, RuntimeError):
+                shell_rss = max(shell_rss, rss_mib(shell.pid))
+            check(time.perf_counter() - t0 < 600, "shell ec.encode hung")
+            time.sleep(0.2)
+        rc = shell.returncode
+        wall = time.perf_counter() - t0
+        with open(shell_log) as f:
+            shell_out = f.read()
+        check(rc == 0 and f"volume {vol_a} -> ec shards" in shell_out,
+              f"shell ec.encode exited {rc}: {shell_out[-2000:]}")
+        out["walls_s"]["encode_per_volume"] = wall
+        out["gb_s"]["encode_per_volume"] = per_vid[vol_a] / wall / 1e9
+        out["shell_rss_mib_max_sampled"] = shell_rss
+        rows1 = node_device_rows(murl, vs_nodes, time.time(), procs)
+        step = rows_delta(rows0, rows1)
+        out["launches"]["encode_per_volume"] = {
+            "volume_servers": vs_kernel_launches(step)}
+        check(set(step) <= {"encode_crc_kernel", "encode_kernel"}
+              and vs_kernel_launches(step) == ref_k[vol_a],
+              f"per-volume encode rows {step}, expected {ref_k[vol_a]} "
+              f"(write_ec_files of the same .dat here)")
+
+        # -- ec.encode -volumeId B,C -batch: K2 with V = 2 here -----------
+        run_command(env, "lock")
+        reset_counts()
+        rows_here = device_counts(roofline.LEDGER.heartbeat_view())
+        t0 = time.perf_counter()
+        msg = run_command(env, f"ec.encode -volumeId {vol_b},{vol_c} -batch "
+                               f"-maxBatchMB {LIVE_BATCH_MB}")
+        wall = time.perf_counter() - t0
+        here = read_counts()
+        rows_here2 = device_counts(roofline.LEDGER.heartbeat_view())
+        for vid in (vol_b, vol_c):
+            check(f"volume {vid} -> ec shards" in msg, f"batch encode: {msg}")
+        out["walls_s"]["encode_batch"] = wall
+        out["gb_s"]["encode_batch"] = \
+            (per_vid[vol_b] + per_vid[vol_c]) / wall / 1e9
+        # One step per chunk of the longer volume, V = 2 while both last.
+        n_steps = sum(c["launches"] for c in here.values())
+        n_axis = sum(c["volume_axis_launches"] for c in here.values())
+        check(n_steps == max(n_ref[vol_b], n_ref[vol_c])
+              and n_axis == min(n_ref[vol_b], n_ref[vol_c]),
+              f"batched encode launches {here}, expected "
+              f"{max(n_ref[vol_b], n_ref[vol_c])} with "
+              f"{min(n_ref[vol_b], n_ref[vol_c])} at V = 2")
+        check(rows_here2.get("batch_encode", 0)
+              - rows_here.get("batch_encode", 0) == n_steps,
+              "batch_encode ledger rows != launches")
+        rows2 = node_device_rows(murl, vs_nodes, time.time(), procs)
+        step = rows_delta(rows1, rows2)
+        check(not step, f"volume servers launched during -batch: {step}")
+        out["launches"]["encode_batch"] = {
+            "shell": {"rs_bitmatrix": here["rs_bitmatrix"]["launches"],
+                      "rs_bitmatrix_crc":
+                          here["rs_bitmatrix_crc"]["launches"],
+                      "volume_axis": n_axis},
+            "volume_servers": vs_kernel_launches(step)}
+
+        # -- every shard and .ecc entry against the card's encode ---------
+        holders: dict = {}
+        ecc_checked = 0
+        for vid in vids:
+            files = shard_files(dirs, vid)
+            check(sorted(files) == list(range(14)),
+                  f"volume {vid} shards on disk: {sorted(files)}")
+            locs = env.ec_shard_locations(vid)
+            for sid, (node, path) in files.items():
+                check(locs.get(sid) == [node],
+                      f"volume {vid} shard {sid}: master says {locs.get(sid)}"
+                      f", disk {node}")
+                check(sha256_file(path) == reference[vid]["shards"][sid],
+                      f"volume {vid} shard {sid} differs from write_ec_files")
+                # A shard copied by the per-volume flow has no entry until
+                # its first scrub; every entry present must be the card's.
+                entry_ = ecc_entries(path[:-5] + ".ecc").get(sid)
+                check(entry_ in (None, reference[vid]["ecc"][sid]),
+                      f"volume {vid} shard {sid}: .ecc entry differs")
+                check(entry_ is not None or vid == vol_a,
+                      f"volume {vid} shard {sid}: no .ecc entry after -batch")
+                ecc_checked += entry_ is not None
+                check(sha256_file(path[:-5] + ".ecx")
+                      == reference[vid]["ecx"], f"volume {vid} .ecx differs")
+            holders[vid] = {sid: node for sid, (node, _p) in files.items()}
+        out["shards_checked"] = 14 * len(vids)
+        out["ecc_entries_checked"] = ecc_checked
+
+        # -- kill -9 a holder of every volume ------------------------------
+        def held(node):
+            return {v: sorted(s for s, n in holders[v].items() if n == node)
+                    for v in vids}
+        victim = next((n for n in vs_nodes
+                       if all(1 <= len(s) <= 3 for s in held(n).values())),
+                      None)
+        check(victim is not None, f"no node holds 1-3 shards of each volume: "
+              f"{ {n: held(n) for n in vs_nodes} }")
+        lost = held(victim)
+        out["killed"] = {"node": victim, "shards": {str(v): s
+                                                    for v, s in lost.items()}}
+        lost_sha = {(v, s): reference[v]["shards"][s]
+                    for v, ss in lost.items() for s in ss}
+        mem = {victim: rss_mib(vs_procs[victim].pid)}
+        t_kill = time.time()
+        rows_kill = node_device_rows(murl, vs_nodes, t_kill, procs)
+        vs_procs[victim].kill()
+        vs_procs[victim].wait(30)
+        procs.remove(vs_procs[victim])
+        live = [n for n in vs_nodes if n != victim]
+
+        # -- degraded reads of a seeded sample through the client ---------
+        rng = np.random.default_rng(args.seed + 10)
+        in_vols = sorted(f for f in fids if int(f.split(",")[0]) in vids)
+        sample = [in_vols[i] for i in rng.choice(len(in_vols), LIVE_READS,
+                                                 replace=False)]
+        evs = {v: EcVolume(reference[v]["base"], vid=v, device=dev)
+               for v in vids}
+        expect_k1 = 0
+        for fid in sample:
+            vid, key, _cookie = t.parse_file_id(fid)
+            ev = evs[vid]
+            _o, _s, intervals = ev.locate_needle(key)
+            expect_k1 += sum(
+                iv.to_shard_id_and_offset(ev.large_block_size,
+                                          ev.small_block_size)[0]
+                in lost[vid] for iv in intervals)
+        for ev in evs.values():
+            ev.close()
+        lat = []
+        reader = WeedClient(murl)
+        for fid in sample:
+            off, size = fids[fid]
+            t0 = time.perf_counter()
+            data = reader.download(fid)
+            lat.append(time.perf_counter() - t0)
+            check(data == blob[off:off + size], f"degraded read {fid} wrong")
+        out["degraded_read_ms"] = {"p50": pct_ms(lat, 50),
+                                   "p99": pct_ms(lat, 99),
+                                   "reads": len(lat),
+                                   "intervals_reconstructed": expect_k1}
+        out["walls_s"]["degraded_reads"] = sum(lat)
+        rows3 = node_device_rows(murl, live, time.time(), procs)
+        step = rows_delta({n: rows_kill[n] for n in live}, rows3)
+        out["launches"]["degraded_reads"] = {
+            "volume_servers": vs_kernel_launches(step)}
+        check(step == ({"reconstruct_kernel": expect_k1} if expect_k1
+                       else {}),
+              f"degraded reads launched {step}, the layout needs "
+              f"{expect_k1} K1 10->1")
+        check(expect_k1 > 0, "no sampled read crossed a lost shard")
+
+        # -- ec.rebuild -batch once the master has dropped the node -------
+        wait_for(lambda: victim not in {
+            n["url"] for n in env.data_nodes()}, "the dead-node sweep",
+            procs, timeout=120.0)
+        reset_counts()
+        rows_here = device_counts(roofline.LEDGER.heartbeat_view())
+        t0 = time.perf_counter()
+        msg = run_command(env, "ec.rebuild -batch")
+        wall = time.perf_counter() - t0
+        here = read_counts()
+        rows_here2 = device_counts(roofline.LEDGER.heartbeat_view())
+        for vid in vids:
+            check(f"volume {vid}: rebuilt shards {lost[vid]}" in msg,
+                  f"rebuild: {msg}")
+        out["walls_s"]["rebuild_batch"] = wall
+        rebuilt_bytes = sum(os.path.getsize(f"{reference[v]['base']}.ec00")
+                            * len(lost[v]) for v in vids)
+        out["gb_s"]["rebuild_batch"] = rebuilt_bytes / wall / 1e9
+        n_steps = sum(c["launches"] for c in here.values())
+        want = rebuild_launches(lost, {
+            v: os.path.getsize(f"{reference[v]['base']}.ec00") for v in vids})
+        check(n_steps == want, f"rebuild launches {here}, expected {want}")
+        check(rows_here2.get("batch_reconstruct", 0)
+              - rows_here.get("batch_reconstruct", 0) == n_steps,
+              "batch_reconstruct ledger rows != launches")
+        for vid in vids:
+            files = shard_files({n: dirs[n] for n in live}, vid)
+            check(sorted(files) == list(range(14)),
+                  f"volume {vid} after rebuild: {sorted(files)}")
+            for sid in lost[vid]:
+                check(sha256_file(files[sid][1]) == lost_sha[(vid, sid)],
+                      f"rebuilt shard {vid}.{sid} differs from its original")
+        rows4 = node_device_rows(murl, live, time.time(), procs)
+        step = rows_delta(rows3, rows4)
+        out["launches"]["rebuild_batch"] = {
+            "shell": {"rs_bitmatrix": here["rs_bitmatrix"]["launches"],
+                      "rs_bitmatrix_crc":
+                          here["rs_bitmatrix_crc"]["launches"]},
+            "volume_servers": vs_kernel_launches(step)}
+
+        # -- every needle back, byte for byte -----------------------------
+        items = sorted(fids.items())
+        it = iter(items)
+        read_errors: list = []
+
+        def read_back():
+            c = WeedClient(murl)
+            while True:
+                with lock:
+                    nxt = next(it, None)
+                if nxt is None:
+                    return
+                fid, (off, size) = nxt
+                try:
+                    ok = c.download(fid) == blob[off:off + size]
+                except Exception as e:  # noqa: BLE001 — reported below
+                    read_errors.append(f"{fid}: {e!r}")
+                    return
+                if not ok:
+                    read_errors.append(f"{fid}: bytes differ")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=read_back)
+                   for _ in range(LIVE_WRITERS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        check(not read_errors, f"read-back failed: {read_errors[:3]}")
+        out["walls_s"]["read_back"] = wall
+        out["gb_s"]["read_back"] = written / wall / 1e9
+        rows5 = node_device_rows(murl, live, time.time(), procs)
+        out["launches"]["read_back"] = {
+            "volume_servers": vs_kernel_launches(rows_delta(rows4, rows5))}
+
+        # -- every process's memory, then the totals ----------------------
+        mem["master"] = rss_mib(master.pid)
+        for n in live:
+            mem[n] = rss_mib(vs_procs[n].pid)
+        mem["chip_smoke"] = rss_mib(os.getpid())
+        out["rss_mib"] = mem
+        totals = {"rs_bitmatrix": 0, "rs_bitmatrix_crc": 0}
+        for s in out["launches"].values():
+            for side in s.values():
+                for k in totals:
+                    totals[k] += side.get(k, 0)
+        out["launch_totals"] = totals
+        check(all(totals.values()), f"phase 10 launches {totals}")
+    finally:
+        if env is not None:
+            env.close()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"live cluster: {json.dumps(out['walls_s'])}")
+    return out
+
+
+def live_busy_share(live: dict, timings: dict) -> dict:
+    """Phase 10's device busy share per step: launches x the kernel
+    table's ms at the nearest shape (an upper bound where the step's
+    shapes are smaller) over the step's wall.  The volume axis costs V
+    times one volume, so a V = 2 encode step counts twice."""
+    k1, k2 = timings["rs_bitmatrix"], timings["rs_bitmatrix_crc"]
+    rebuild_ms = next(v["ms"] for k, v in k2.items()
+                      if k.startswith("at_rebuild"))
+    launches, walls = live["launches"], live["walls_s"]
+    batch = launches["encode_batch"]["shell"]
+    device_ms = {
+        "encode_per_volume": launches["encode_per_volume"][
+            "volume_servers"]["rs_bitmatrix_crc"] * k2["ms"],
+        "encode_batch": (batch["rs_bitmatrix_crc"]
+                         + batch["volume_axis"]) * k2["ms"],
+        "degraded_reads": launches["degraded_reads"]["volume_servers"][
+            "rs_bitmatrix"] * k1["at_10_to_1_1mib"]["ms"],
+        "rebuild_batch": launches["rebuild_batch"]["shell"][
+            "rs_bitmatrix_crc"] * rebuild_ms}
+    return {step: ms / 1e3 / walls[step] for step, ms in device_ms.items()}
+
+
 def entry(t, plain, lib, k_in, k_out, width, crc, volumes=1):
     """A timing row: kernel, plain and library ms, and the bound for
     `volumes` volumes of (k_in -> k_out, width)."""
@@ -2324,6 +2943,8 @@ def main() -> int:
     ap.add_argument("--dat-mib", type=int, default=1024)
     ap.add_argument("--batch-div", type=int, default=1,
                     help="divide the batched path's volume sizes by this")
+    ap.add_argument("--live-mib", type=int, default=LIVE_LIMIT_MB,
+                    help="the live cluster's volume size limit, MiB")
     args = ap.parse_args()
 
     import torch
@@ -2357,6 +2978,7 @@ def main() -> int:
         batch = phase_batch(torch, dev, args)
         storage = phase_storage(torch, dev, args)
         cluster = phase_cluster(torch, dev, args)
+        live = phase_live_cluster(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -2382,6 +3004,7 @@ def main() -> int:
         n = storage["launches"][step][fn]["launches"]
         busy[step] = n * ms / 1e3 / storage["walls_s"][step]
     storage["device_busy_share"] = busy
+    live["device_busy_share"] = live_busy_share(live, timings)
 
     kernels = [
         {"name": "rs_bitmatrix", "route": "cuda",
@@ -2392,7 +3015,8 @@ def main() -> int:
              for s in PHASE6_STEPS) + sum(
              storage["launches"][s]["rs_bitmatrix"]["launches"]
              for s in STORAGE_STEPS)
-         + cluster["window_launches"]["rs_bitmatrix"],
+         + cluster["window_launches"]["rs_bitmatrix"]
+         + live["launch_totals"]["rs_bitmatrix"],
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
@@ -2402,7 +3026,8 @@ def main() -> int:
              for s in PHASE6_STEPS) + sum(
              storage["launches"][s]["rs_bitmatrix_crc"]["launches"]
              for s in STORAGE_STEPS)
-         + cluster["window_launches"]["rs_bitmatrix_crc"],
+         + cluster["window_launches"]["rs_bitmatrix_crc"]
+         + live["launch_totals"]["rs_bitmatrix_crc"],
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
     obs = phase_observability(torch, probe, main_path, batch, storage, timings)
@@ -2413,6 +3038,7 @@ def main() -> int:
     print(json.dumps({"storage_path": storage}))
     print(json.dumps({"observability": obs}))
     print(json.dumps({"control_plane": cluster}))
+    print(json.dumps({"live_cluster": live}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

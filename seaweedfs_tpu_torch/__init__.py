@@ -5,9 +5,11 @@ This slice carries the Reed-Solomon RS(10,4) erasure-coding data path:
 rebuild, and the degraded needle read (``ec/volume.py``).  The GF(2^8)
 byte mix and the fused `.ecc` CRC32-C run in two hand-written CUDA
 kernels for Hopper (``csrc/``, bound in ``ops/coder_cuda.py``).  In
-front of it sit the storage engine (``storage/``) and the control plane
+front of it sit the storage engine (``storage/``), the control plane
 (``cluster/rpc.py``, ``cluster/master.py``, ``topology/``, ``tenancy/``,
-``netcore/``): ``python -m seaweedfs_tpu_torch master`` starts a master.
+``netcore/``), the volume server and client (``cluster/volume_server.py``,
+``cluster/client.py``) and the admin shell (``shell/``): ``python -m
+seaweedfs_tpu_torch master``, ``volume`` and ``shell`` form a cluster.
 
 The package imports torch, numpy and the standard library only.  Module
 paths follow ``seaweedfs_tpu/`` so each counterpart is found by name;

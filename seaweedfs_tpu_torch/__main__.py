@@ -1,5 +1,6 @@
 """`python -m seaweedfs_tpu_torch <command>` — the port's `weed` binary
-(reference: weed/weed.go:38-80).  So far it has `master`."""
+(reference: weed/weed.go:38-80).  It has `master`, `volume`,
+`server`, `shell`, `upload`, `download` and `version`."""
 
 import sys
 

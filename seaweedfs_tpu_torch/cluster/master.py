@@ -13,9 +13,8 @@ HTTP surface mirrors the reference master's API
   GET  /col/list, POST /col/delete
   GET  /cluster/status
 
-Not ported yet (ROADMAP queue 1, slice 8b): multi-master raft
-(`peers`) and the admin-script cron (`admin_scripts`); asking for either
-raises NotImplementedError.
+Not ported yet (ROADMAP queue 1, slice 8c): multi-master raft
+(`peers`); asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -98,24 +97,27 @@ class MasterServer:
                  repair_enabled: bool = False,
                  repair_delay: float | None = None,
                  repair_concurrent: int = 2):
-        # Not ported yet (ROADMAP queue 1, slice 8b): refuse before any
+        # Not ported yet (ROADMAP queue 1, slice 8c): refuse before any
         # socket is bound rather than run without the feature.
         if peers:
             raise NotImplementedError(
                 "multi-master raft (-peers) is not ported yet "
-                "(ROADMAP queue 1, slice 8b)")
-        if admin_scripts.strip():
-            raise NotImplementedError(
-                "master.toml maintenance scripts need the shell, which "
-                "is not ported yet (ROADMAP queue 1, slice 8b)")
+                "(ROADMAP queue 1, slice 8c)")
         # Write-path JWT (security/jwt.go): when configured, Assign
         # responses carry an `auth` token volume servers require on
         # needle writes/deletes.
         self.jwt_signing_key = jwt_signing_key
         self.jwt_expires_seconds = jwt_expires_seconds
-        # The admin-script cron's (started_at, line, ok, output) history
-        # on the status page (master_server.go:187-263): empty until the
-        # cron is ported with the shell.
+        # Admin-script cron (master_server.go:187-263 startAdminScripts):
+        # master.toml maintenance scripts — one shell command per line —
+        # run on the leader every interval, wrapped in lock/unlock, so
+        # the EC lifecycle (ec.encode/rebuild/balance, volume.balance)
+        # runs unattended.
+        self.admin_scripts = [ln.strip() for ln in admin_scripts.split("\n")
+                              if ln.strip()]
+        self.admin_script_interval = admin_script_interval
+        # (started_at, line, ok, output-or-error) — observability for
+        # tests and the status endpoint.
         self.admin_script_runs: list[tuple[float, str, bool, str]] = []
         # Location push channels (/cluster/watch): the KeepConnected
         # analog (pb/master.proto:10-13, master_grpc_server.go:178) —
@@ -411,6 +413,9 @@ class MasterServer:
         self._sweeper.start()
         if self.lifecycle.policy.rules:
             self.lifecycle.start()
+        if self.admin_scripts:
+            threading.Thread(target=self._admin_script_loop,
+                             daemon=True, name="master-cron").start()
 
     def stop(self) -> None:
         self._stop.set()
@@ -425,6 +430,51 @@ class MasterServer:
 
     def url(self) -> str:
         return self.server.url()
+
+    # -- admin-script cron (startAdminScripts) -------------------------------
+
+    def _admin_script_loop(self) -> None:
+        while not self._stop.wait(self.admin_script_interval):
+            if not self.is_leader():
+                continue
+            try:
+                self.run_admin_scripts()
+            except Exception:  # noqa: BLE001 — cron must never die
+                pass
+
+    def run_admin_scripts(self) -> list[tuple[float, str, bool, str]]:
+        """One cron round: lock, run every configured script line
+        through the shell dispatcher, unlock.  Returns this round's
+        (ts, line, ok, output) records (also appended to
+        admin_script_runs).  A -batch line runs its kernels in this
+        process, on every visible card."""
+        from ..shell import CommandEnv, run_command
+        from ..utils import glog
+        env = CommandEnv(self.url())
+        round_runs: list[tuple[float, str, bool, str]] = []
+        try:
+            lines = list(self.admin_scripts)
+            if not any(ln == "lock" for ln in lines):
+                lines = ["lock"] + lines + ["unlock"]
+            for line in lines:
+                ts = time.time()
+                try:
+                    out = run_command(env, line)
+                    round_runs.append((ts, line, True, out))
+                except Exception as e:  # noqa: BLE001 — next script
+                    glog.warningf("admin script %r: %s", line, e)
+                    round_runs.append((ts, line, False, str(e)))
+                    if line == "lock":
+                        # No exclusive lease (an operator holds it):
+                        # maintenance concurrent with their session is
+                        # the race the lock prevents.  Abort the round;
+                        # the next tick retries.
+                        break
+        finally:
+            env.close()
+            self.admin_script_runs.extend(round_runs)
+            del self.admin_script_runs[:-200]
+        return round_runs
 
     # -- handlers -----------------------------------------------------------
 

@@ -468,15 +468,7 @@ class RepairDaemon:
         return min(cands, key=score)
 
     def _rebuild_ec(self, t: RepairTask) -> None:
-        try:
-            from ..parallel.cluster_rebuild import batch_rebuild, make_mesh
-        except ImportError:
-            # The network half of the batched rebuild (shard gather and
-            # scatter across volume servers) comes with the volume
-            # server: fail the task loudly until then.
-            raise NotImplementedError(
-                "EC rebuild across volume servers is not ported yet "
-                "(ROADMAP queue 1, slice 8b)") from None
+        from ..parallel.cluster_rebuild import batch_rebuild, make_mesh
         t.phase = "rebuild"
         if self._mesh is None:
             self._mesh = make_mesh()

@@ -89,9 +89,9 @@ def register(cmd: Command) -> None:
 
 def _load_all() -> None:
     # Import for registration side effects.  Only the commands the port
-    # has register: the other roles, the client tools and the shell
-    # arrive with their slices (ROADMAP queue 1).
-    from . import servers  # noqa: F401
+    # has register: the other roles and client tools arrive with their
+    # slices (ROADMAP queue 1).
+    from . import client_cmds, servers  # noqa: F401
 
 
 def usage() -> str:

@@ -1,9 +1,12 @@
-"""Server-role subcommands of the port: so far `master`
-(reference: weed/command/master.go; seaweedfs_tpu/command/servers.py).
+"""Server-role subcommands of the port: `master`, `volume` and the
+all-in-one `server` (reference: weed/command/master.go, volume.go,
+server.go; seaweedfs_tpu/command/servers.py).
 
-`run_master` starts the in-process `MasterServer` and blocks until
-SIGINT/SIGTERM.  The volume, filer, gateway and all-in-one roles come
-with the volume-server slice of the port (ROADMAP queue 1, 8b and on).
+Each starts its in-process server(s) and blocks until SIGINT/SIGTERM.
+`volume` and `server` take `-device=cuda|cpu` (default cuda): the device
+every EC coder of the volume server runs on; without a card, `cuda`
+refuses to start.  The filer, gateway and broker roles, and `server`'s
+-filer/-s3/-webdav, wait for ROADMAP queue 1 slice 11.
 
 Global flags every server role honors (parsed by the dispatcher,
 command/__init__.py, before the role starts):
@@ -25,6 +28,7 @@ command/__init__.py, before the role starts):
 from __future__ import annotations
 
 import signal
+import sys
 import threading
 
 from ..utils import glog
@@ -107,6 +111,23 @@ def _start_master_grpc(m, flags: Flags, ip: str) -> None:
     return None
 
 
+def _start_volume_grpc(vs, flags: Flags, ip: str) -> None:
+    """The volume server's gRPC plane waits for slice 11 too."""
+    return _start_master_grpc(vs, flags, ip)
+
+
+def _device_flag(flags: Flags):
+    """-device=cuda|cpu: where the role's EC kernels run.  A card that
+    is not there exits with the reason instead of a traceback, and is
+    never replaced by the CPU."""
+    from ..ops.erasure import resolve_device
+    try:
+        return resolve_device(flags.get("device", "cuda"))
+    except (RuntimeError, ValueError) as e:
+        print(f"-device: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
+
+
 def run_master(flags: Flags, args: list[str]) -> int:
     from ..cluster.master import MasterServer as Master
     from ..utils.config import load_configuration
@@ -187,6 +208,170 @@ def run_master(flags: Flags, args: list[str]) -> int:
     return _wait_forever([m] + ([g] if g else []))
 
 
+def run_volume(flags: Flags, args: list[str]) -> int:
+    from ..cluster.volume_server import VolumeServer
+    device = _device_flag(flags)
+    dirs = [d for d in flags.get("dir", "./data").split(",") if d]
+    maxes = [int(x) for x in flags.get("max", "8").split(",")]
+    if len(maxes) == 1:
+        maxes = maxes * len(dirs)
+    vs = VolumeServer(
+        master_url=[_norm_master(u) for u in
+                    flags.get("mserver", "127.0.0.1:9333").split(",")],
+        directories=dirs,
+        host=flags.get("ip", "127.0.0.1"),
+        port=flags.get_int("port", 8080),
+        max_volume_counts=maxes,
+        data_center=flags.get("dataCenter", "DefaultDataCenter"),
+        rack=flags.get("rack", "DefaultRack"),
+        jwt_signing_key=flags.get("jwt.key", ""),
+        ssl_context=_security("volume"),
+        read_redirect=flags.get_bool("read.redirect", True),
+        # Data-integrity knobs: -fsync forces per-write durability
+        # (every POST acks only after .dat AND .idx are fsynced);
+        # -scrub.mbps bounds the background integrity sweep's disk
+        # bandwidth and -scrub.interval its cadence (0 = on-demand
+        # only via volume.scrub / POST /admin/scrub).
+        fsync=flags.get_bool("fsync", False),
+        scrub_mbps=flags.get_float("scrub.mbps", 32.0),
+        scrub_interval=flags.get_float("scrub.interval", 3600.0),
+        # Overload & lifecycle knobs: -max.concurrent bounds per-lane
+        # request concurrency (0 = no shedding), -disk.reserve (MB)
+        # flips volumes readonly before ENOSPC, -shutdown.grace bounds
+        # the drain wait on SIGTERM, -idle.timeout reaps stalled
+        # (slow-loris) connections.
+        max_concurrent=flags.get_int("max.concurrent", 0),
+        queue_depth=flags.get_int("max.queue", 0) or None,
+        shutdown_grace=flags.get_float("shutdown.grace", 30.0),
+        disk_reserve_mb=flags.get_float("disk.reserve", 0.0),
+        idle_timeout=flags.get_float("idle.timeout", 120.0),
+        transport=_transport_flag(flags),
+        # -read.sendfile.min: smallest whole-needle GET served by the
+        # zero-copy sendfile slice path (0 disables; default 4KB).
+        sendfile_min=(int(flags.get("read.sendfile.min"))
+                      if flags.get("read.sendfile.min") != "" else None),
+        # -ec.codec: default erasure codec for /admin/ec/generate —
+        # "rs" (reference-compatible RS(10,4)) or "lrc" (LRC(10,2,2),
+        # 5-read single-shard repair).
+        ec_codec=flags.get("ec.codec", "rs"),
+        # Cross-cluster mirroring and the geo lease plane (slice 10):
+        # the server refuses them.
+        replicate_peer=(_norm_master(flags.get("replicate.peer"))
+                        if flags.get("replicate.peer") else None),
+        geo_cluster_id=flags.get("geo.cluster.id", ""),
+        # Remote-tier knobs: -tier.cache.mb bounds the read-through
+        # block cache for tiered volumes; -tier.promote.hits (>0) turns
+        # on auto-promotion — a tiered volume whose cache sees that
+        # many distinct reads inside -tier.promote.window seconds is
+        # downloaded back local.
+        tier_cache_mb=flags.get_float("tier.cache.mb", 64.0),
+        tier_promote_hits=flags.get_int("tier.promote.hits", 0),
+        tier_promote_window=flags.get_float("tier.promote.window", 60.0),
+        # Tenancy plane: same policy file as the master's -tenant.rules
+        # — here it drives the per-tenant token buckets and DRR weights
+        # on this node's admission lanes.
+        tenant_rules=flags.get("tenant.rules", ""),
+        device=device,
+        # -slo.read.p99 / -slo.availability: declared objectives for
+        # the burn engine; exemplars + quantiles run regardless.
+        **_slo_flags(flags))
+    vs.start()
+    glog.infof("volume server serving at %s (dirs %s, device %s)",
+               vs.server.url(), dirs, device)
+    g = _start_volume_grpc(vs, flags, flags.get("ip", "127.0.0.1"))
+    return _wait_forever([vs] + ([g] if g else []),
+                         grace=flags.get_float("shutdown.grace", 30.0))
+
+
+def run_server(flags: Flags, args: list[str]) -> int:
+    """All-in-one: master + volume.  The filer, S3 and WebDAV roles
+    wait for slice 11: asking for them raises NotImplementedError
+    before anything starts."""
+    from ..cluster.master import MasterServer as Master
+    from ..cluster.volume_server import VolumeServer
+    for role in ("filer", "s3", "webdav"):
+        if flags.get_bool(role, False):
+            raise NotImplementedError(
+                f"server -{role}: the {role} role is not ported yet "
+                "(ROADMAP queue 1, slice 11)")
+    device = _device_flag(flags)
+    servers: list = []
+    ip = flags.get("ip", "127.0.0.1")
+    m = Master(host=ip, port=flags.get_int("master.port", 9333),
+               meta_dir=flags.get("mdir") or None,
+               volume_size_limit_mb=flags.get_int(
+                   "volumeSizeLimitMB", 30 * 1024),
+               default_replication=flags.get("defaultReplication", "000"),
+               ssl_context=_security("master"),
+               lifecycle_rules=flags.get("lifecycle.rules", ""),
+               lifecycle_interval=flags.get_float("lifecycle.interval",
+                                                  60.0),
+               lifecycle_mbps=flags.get_float("lifecycle.mbps", 32.0),
+               tenant_rules=flags.get("tenant.rules", ""),
+               # Durability autopilot flags mirror the standalone
+               # master command.
+               repair_enabled=flags.get_bool("repair", False),
+               repair_delay=flags.get_float("repair.delay", 0.0)
+               or None,
+               repair_concurrent=flags.get_int("repair.concurrent", 2),
+               # -transport applies to EVERY embedded role, like -slo.*.
+               transport=_transport_flag(flags),
+               # -slo.* applies to EVERY embedded role, same as the
+               # standalone commands — half-declared objectives would
+               # silently disable master-side burn.
+               **_slo_flags(flags))
+    m.start()
+    servers.append(m)
+    dirs = [d for d in flags.get("dir", "./data").split(",") if d]
+    maxes = [int(x) for x in flags.get("volume.max", "8").split(",")]
+    if len(maxes) == 1:
+        maxes = maxes * len(dirs)
+    try:
+        vs = VolumeServer(master_url=m.server.url(), directories=dirs,
+                          host=ip, port=flags.get_int("volume.port", 8080),
+                          max_volume_counts=maxes,
+                          data_center=flags.get("dataCenter",
+                                                "DefaultDataCenter"),
+                          rack=flags.get("rack", "DefaultRack"),
+                          ssl_context=_security("volume"),
+                          fsync=flags.get_bool("fsync", False),
+                          scrub_mbps=flags.get_float("scrub.mbps", 32.0),
+                          scrub_interval=flags.get_float("scrub.interval",
+                                                         3600.0),
+                          max_concurrent=flags.get_int("max.concurrent",
+                                                       0),
+                          shutdown_grace=flags.get_float("shutdown.grace",
+                                                         30.0),
+                          disk_reserve_mb=flags.get_float("disk.reserve",
+                                                          0.0),
+                          ec_codec=flags.get("ec.codec", "rs"),
+                          tier_cache_mb=flags.get_float("tier.cache.mb",
+                                                        64.0),
+                          tier_promote_hits=flags.get_int(
+                              "tier.promote.hits", 0),
+                          tier_promote_window=flags.get_float(
+                              "tier.promote.window", 60.0),
+                          tenant_rules=flags.get("tenant.rules", ""),
+                          transport=_transport_flag(flags),
+                          device=device,
+                          **_slo_flags(flags))
+    except BaseException:
+        m.stop()
+        raise
+    vs.start()
+    servers.append(vs)
+    glog.infof("master at %s, volume at %s", m.server.url(),
+               vs.server.url())
+    g = _start_master_grpc(m, flags, ip)
+    if g:
+        servers.append(g)
+    vg = _start_volume_grpc(vs, flags, ip)
+    if vg:
+        servers.append(vg)
+    return _wait_forever(servers,
+                         grace=flags.get_float("shutdown.grace", 30.0))
+
+
 def _norm_master(addr: str) -> str:
     return addr if addr.startswith("http") else f"http://{addr}"
 
@@ -203,3 +388,22 @@ register(Command("master", "master -port=9333 -mdir=/tmp/meta"
                  " [-replicate.steer.refresh=2]"
                  " [-filer.shards=0] [-pulseSeconds=5]",
                  "start a master server", run_master))
+register(Command("volume",
+                 "volume -port=8080 -dir=/data -max=8 -mserver=host:9333"
+                 " [-device=cuda|cpu]"
+                 " [-transport=aio|threads] [-read.sendfile.min=4096]"
+                 " [-fsync] [-scrub.mbps=32] [-scrub.interval=3600]"
+                 " [-max.concurrent=0] [-disk.reserve=0(MB)]"
+                 " [-shutdown.grace=30] [-ec.codec=rs|lrc]"
+                 " [-slo.read.p99=0.05] [-slo.availability=99.9]"
+                 " [-tier.cache.mb=64] [-tier.promote.hits=0]"
+                 " [-tier.promote.window=60] [-tenant.rules=tenants.txt]",
+                 "start a volume server", run_volume))
+register(Command("server",
+                 "server -dir=/data [-device=cuda|cpu]"
+                 " [-transport=aio|threads]"
+                 " [-lifecycle.rules=rules.txt]"
+                 " [-tenant.rules=tenants.txt]"
+                 " [-tier.cache.mb=64] [-tier.promote.hits=0]",
+                 "start master+volume in one process",
+                 run_server))

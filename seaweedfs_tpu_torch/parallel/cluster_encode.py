@@ -1,16 +1,20 @@
 """Batched EC encode of many volumes: one device step per stripe chunk
 of every volume in a group.
 
-Port of the network-free half of seaweedfs_tpu/parallel/cluster_encode.py:
-`pipeline_depth`, `_BufferPool`, `_ShardWriter`, and steps 2-3 of
-`_encode_batch_group_inner` as `encode_volume_files`: stream-encode local
-`.dat` files with stripe chunks of many volumes stacked on the "vol" axis,
-write their shards, then `.ecx` and `.vif`, and return each volume's
-device-computed `.ecc` CRCs.  `batch_encode_files` is its local entry
-point: it groups volumes under `max_batch_bytes` as `batch_encode` does
-and writes the `.ecc` sidecars where the cluster path would push them to
-the shard holders.  Fetching `.dat`/`.idx` from volume servers and scattering
-the shards wrap `encode_volume_files` in the cluster layer.
+Port of seaweedfs_tpu/parallel/cluster_encode.py.  Steps 2-3 of the
+reference's `_encode_batch_group_inner` are `encode_volume_files`:
+stream-encode local `.dat` files with stripe chunks of many volumes
+stacked on the "vol" axis, write their shards, then `.ecx` and `.vif`,
+and return each volume's device-computed `.ecc` CRCs.  Two entry points
+wrap it:
+
+- `batch_encode_files`, the local one: it groups volumes under
+  `max_batch_bytes` and writes the `.ecc` sidecars beside the shards;
+- `batch_encode`, the shell's `ec.encode -batch`: it freezes every
+  replica, pulls each `.dat`/`.idx` from a holder (`_fetch_volume`),
+  encodes, then scatters the shards under a byte budget to a balanced
+  placement, each holder's device `.ecc` fragment first
+  (`_ecc_push_plan`), mounts them and deletes the originals.
 
 The data path is streamed (stream_pipeline.py): a prefetch thread stacks
 the next chunk batch into a reusable host buffer — pinned, when the
@@ -31,25 +35,33 @@ the step's kernel time, and, while `roofline.ARMED`, the run's
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import json
 import os
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
+from ..cluster import rpc
 from ..codecs import get_codec
 from ..ec import DATA_SHARDS, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, to_ext
 from ..ec.encoder import (DEFAULT_CHUNK, _chunk_reader,
                           write_sorted_file_from_idx)
 from ..ec.integrity import ShardChecksums, ecc_lock, file_block_crcs
 from ..ec.volume_info import update_volume_info
+from ..events import emit as emit_event
+from ..fault import registry as _fault
 from ..ops.crc_fold import fused_crc_enabled
+from ..stats import flows as _flows
 from ..stats import roofline as _roofline
-from ..stats.metrics import observe_batch_stage
-from .cluster_rebuild import _pad_to
-from .mesh import Mesh, make_mesh
+from ..stats.metrics import observe_batch_stage, stage_attrs
+from ..trace import root_span
+from .cluster_rebuild import _pad_to, make_mesh
+from .mesh import Mesh
 from .sharded_codec import encode_step, record_fenced_batch
 from .stream_pipeline import PipelineRecorder, run_pipeline
 
@@ -206,16 +218,20 @@ def batch_encode_files(bases, mesh: Mesh | None = None,
 
 def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
                         depth: int,
-                        recorder: PipelineRecorder | None = None
+                        recorder: PipelineRecorder | None = None,
+                        stages: dict | None = None,
+                        vif_version: bool = False
                         ) -> list[list[list[int]]] | None:
     """Stream-encode the local `.dat` files `bases` in one group: write
-    every volume's shard files, `.ecx` and `.vif`.  Returns each volume's
-    per-shard `.ecc` block CRCs from the device (fused CRC), or None when
-    the CRCs were not fused (the caller then checksums the shard files).
-    `recorder` collects the stack, dispatch, device and drain spans;
-    without one, a bounded recorder is made while `roofline.ARMED`.
-    Armed, the recorder is folded into `roofline.LEDGER.note_pipeline`
-    as "encode"."""
+    every volume's shard files, `.ecx` and `.vif` (with the needle
+    version of the `.dat` when `vif_version`, as the cluster scatter
+    ships it).  Returns each volume's per-shard `.ecc` block CRCs from
+    the device (fused CRC), or None when the CRCs were not fused (the
+    caller then checksums the shard files).  `recorder` collects the
+    stack, dispatch, device and drain spans; without one, a bounded
+    recorder is made while `roofline.ARMED`.  Armed, the recorder is
+    folded into `roofline.LEDGER.note_pipeline` as "encode".  `stages`
+    collects the batch_* stage seconds and bytes."""
     vol_axis = mesh.shape["vol"]
     col_axis = mesh.shape["col"]
     on_cuda = mesh_on_cuda(mesh)
@@ -240,7 +256,8 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
     rec = recorder
     if rec is None and _roofline.ARMED:
         rec = PipelineRecorder(maxlen=1024)
-    stages: dict = {}
+    if stages is None:
+        stages = {}
     try:
         iters = [
             _chunk_reader(d, os.path.getsize(b + ".dat"),
@@ -357,5 +374,298 @@ def encode_volume_files(bases, mesh: Mesh, chunk_size: int, codec,
     # as write_ec_files records them.
     for base in bases:
         write_sorted_file_from_idx(base)
-        update_volume_info(base, codec=codec.name)
+        if vif_version:
+            with open(base + ".dat", "rb") as f:
+                version = f.read(1)[0]
+            update_volume_info(base, version=version, codec=codec.name)
+        else:
+            update_volume_info(base, codec=codec.name)
     return vol_crcs if fused else None
+
+
+# -- the network half: ec.encode -batch over the cluster ---------------------
+
+def scatter_budget_bytes() -> int:
+    """Cap on concurrent in-flight shard payload bytes during scatter —
+    a batch of large volumes must not hold every shard file in memory at
+    once (shards are read inside the budgeted workers, not up front)."""
+    return int(os.environ.get("SEAWEEDFS_TPU_EC_SCATTER_BUDGET",
+                              str(256 << 20)))
+
+
+class _ByteBudget:
+    """Blocking byte-count semaphore; a request larger than the cap is
+    clamped so a single huge shard can always proceed alone."""
+
+    def __init__(self, cap: int):
+        self.cap = max(1, cap)
+        self._used = 0
+        self._cond = threading.Condition()
+
+    def acquire(self, nbytes: int) -> int:
+        take = min(nbytes, self.cap)
+        with self._cond:
+            while self._used + take > self.cap:
+                self._cond.wait()
+            self._used += take
+        return take
+
+    def release(self, taken: int) -> None:
+        with self._cond:
+            self._used -= taken
+            self._cond.notify_all()
+
+
+def batch_encode(env, vids, mesh: Mesh | None = None,
+                 max_batch_bytes: int = 1 << 28, workers: int = 8,
+                 chunk_size: int = DEFAULT_CHUNK, progress=None,
+                 codec=None, depth: int | None = None) -> list[str]:
+    """EC-encode `vids` across the cluster in batched device steps.
+    Returns one line per volume.  `codec` selects the erasure codec
+    ("rs" default / "lrc"); the generator matrix, shard count and the
+    `.vif` codec id pushed to every holder derive from it.  `depth`
+    overrides the stream-pipeline depth (0 = serialized).  The mesh
+    defaults to every visible card (raising without one).
+
+    env: duck-typed cluster view (shell CommandEnv): volume_locations,
+    data_nodes, vs_call."""
+    # Refused before any replica is frozen.
+    _check_chunk_size(chunk_size)
+    codec = get_codec(codec)
+    depth = pipeline_depth(depth)
+    if mesh is None:
+        mesh = make_mesh()
+    # One size map per call, not a topology rescan per volume.
+    sizes: dict[int, int] = {}
+    for n in env.data_nodes():
+        for v in n["volumes"]:
+            sizes.setdefault(v["id"], int(v["size"]))
+    targets: list[tuple[int, list[str]]] = []
+    messages: list[str] = []
+    for vid in vids:
+        try:
+            locs = env.volume_locations(vid)
+        except rpc.RpcError as e:
+            if e.status != 404:
+                raise
+            locs = []
+        if not locs:
+            messages.append(f"volume {vid}: SKIPPED — no locations")
+            continue
+        targets.append((vid, locs))
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
+    try:
+        i = 0
+        while i < len(targets):
+            batch, total = [], 0
+            while i < len(targets) and (not batch
+                                        or total < max_batch_bytes):
+                batch.append(targets[i])
+                total += sizes.get(targets[i][0], 0)
+                i += 1
+            messages += _encode_batch_group(env, mesh, pool, batch,
+                                            chunk_size, progress,
+                                            codec, depth)
+    finally:
+        # Queued fetch/scatter work of a failed batch must not keep
+        # running after the exception has unwound to the caller.
+        pool.shutdown(wait=False, cancel_futures=True)
+    return messages
+
+
+def _fetch_volume(tmpdir: str, vid: int, locs: list[str]) -> str:
+    """Pull one frozen volume's .dat/.idx to local temp files, failing
+    over across replicas.  Returns the local base path."""
+    base = os.path.join(tmpdir, str(vid))
+    errors = []
+    for url in locs:
+        try:
+            if _fault.ARMED:
+                _fault.hit("ec.fetch_shard", holder=url, vid=vid)
+            _h = {**rpc.PRIORITY_LOW, **_flows.tag("ec.gather")}
+            rpc.call_to_file(
+                f"http://{url}/admin/volume_file?volume={vid}&ext=.idx",
+                base + ".idx", headers=_h)
+            rpc.call_to_file(
+                f"http://{url}/admin/volume_file?volume={vid}&ext=.dat",
+                base + ".dat", headers=_h)
+            return base
+        except Exception as e:  # noqa: BLE001 — next replica
+            errors.append(f"{url}: {type(e).__name__}: {e}")
+    raise rpc.RpcError(
+        502, f"volume {vid}: cannot fetch .dat/.idx: "
+             + "; ".join(errors[:4]))
+
+
+def _encode_batch_group(env, mesh, pool, batch, chunk_size,
+                        progress, codec, depth) -> list[str]:
+    """Fetch, encode, scatter one sub-batch of volumes — journaled as
+    ec.encode.start/finish with per-stage byte/second attrs, under a
+    root span."""
+    vids = [vid for vid, _locs in batch]
+    with root_span("ec.batch_encode", "ec", volumes=len(vids),
+                   codec=codec.name):
+        emit_event("ec.encode.start", volumes=vids, batch=True,
+                   codec=codec.name)
+        t0 = time.perf_counter()
+        stages: dict[str, list[float]] = {}
+        try:
+            out = _encode_batch_group_inner(env, mesh, pool, batch,
+                                            chunk_size, progress,
+                                            stages, codec, depth)
+        except Exception as e:
+            emit_event("ec.encode.finish", severity="error",
+                       volumes=vids, batch=True, codec=codec.name,
+                       seconds=round(time.perf_counter() - t0, 6),
+                       error=f"{type(e).__name__}: {e}",
+                       **stage_attrs(stages))
+            raise
+        emit_event("ec.encode.finish", volumes=vids, batch=True,
+                   codec=codec.name, pipeline_depth=depth,
+                   seconds=round(time.perf_counter() - t0, 6),
+                   **stage_attrs(stages))
+        return out
+
+
+def _encode_batch_group_inner(env, mesh, pool, batch, chunk_size,
+                              progress, stages, codec, depth) -> list[str]:
+    """Fetch, stream-encode, scatter one sub-batch of volumes."""
+    from ..shell.command_ec import balanced_distribution, collect_ec_nodes
+    out: list[str] = []
+    with tempfile.TemporaryDirectory(prefix="ec_batch_encode_") as tmp:
+        # 1. Freeze every replica, then pull .dat/.idx in parallel.
+        for vid, locs in batch:
+            for url in locs:
+                env.vs_call(url, "/admin/readonly",
+                            {"volume": vid, "readonly": True})
+        t_fetch = time.perf_counter()
+        bases = list(pool.map(lambda t: _fetch_volume(tmp, *t), batch))
+        observe_batch_stage(
+            stages, "batch_fetch", time.perf_counter() - t_fetch,
+            sum(os.path.getsize(b + ".dat") for b in bases))
+
+        # 2-3. Stream-encode the group, then .ecx and a .vif with the
+        # needle version and codec id: every shard holder must know
+        # which generator matrix made its shards.
+        vol_crcs = encode_volume_files(bases, mesh, chunk_size, codec,
+                                       depth, stages=stages,
+                                       vif_version=True)
+
+        # 4. Scatter: balanced placement; push the device-computed
+        # `.ecc` fragment first (so receive_shard skips its CPU CRC pass
+        # over the pushed bytes), then shards under the byte budget,
+        # then .ecx/.vif, mount, delete the originals
+        # (command_ec_encode.go flow).
+        budget = _ByteBudget(scatter_budget_bytes())
+        for b_idx, ((vid, locs), base) in enumerate(zip(batch, bases)):
+            plan = balanced_distribution(collect_ec_nodes(env),
+                                         n_shards=codec.total_shards)
+            t_scatter = time.perf_counter()
+            pusher = _ecc_push_plan(
+                vid, ((url, sid, vol_crcs[b_idx][sid])
+                      for url, sids in plan.items()
+                      for sid in sids)) if vol_crcs is not None else None
+            futs = []
+            for url, shard_ids in plan.items():
+                for sid in shard_ids:
+                    futs.append(pool.submit(
+                        _scatter_shard, url, vid, sid,
+                        base + to_ext(sid), budget, pusher))
+            scattered = sum(f.result() for f in futs)
+            observe_batch_stage(stages, "batch_scatter",
+                                time.perf_counter() - t_scatter, scattered)
+            with open(base + ".ecx", "rb") as f:
+                ecx = f.read()
+            with open(base + ".vif", "rb") as f:
+                vif = f.read()
+            for url in plan:
+                _h = {**rpc.PRIORITY_LOW, **_flows.tag("ec.scatter")}
+                rpc.call(f"http://{url}/admin/ec/receive_file?"
+                         f"volume={vid}&ext=.ecx", "POST", ecx, 600.0,
+                         headers=_h)
+                rpc.call(f"http://{url}/admin/ec/receive_file?"
+                         f"volume={vid}&ext=.vif", "POST", vif, 600.0,
+                         headers=_h)
+                env.vs_call(url, "/admin/ec/mount", {"volume": vid})
+            for url in locs:
+                env.vs_call(url, "/admin/delete_volume", {"volume": vid})
+            line = (f"volume {vid} -> ec shards on {len(plan)} "
+                    "servers: "
+                    + ", ".join(f"{u}:{s}"
+                                for u, s in sorted(plan.items())))
+            out.append(line)
+            if progress:
+                progress(line)
+    return out
+
+
+class _EccOncePush:
+    """Once-per-holder push of the kernel-computed `.ecc` fragment, run
+    lazily inside the scatter workers: the first shard worker bound for
+    a holder ships that holder's fragment under its lock, so the entries
+    land before any shard body and receive_shard can skip its CPU pass,
+    while workers for other holders proceed in parallel.  The fragments
+    are best effort: a holder that missed its fragment fingerprints the
+    pushed bodies itself."""
+
+    def __init__(self, vid: int, docs: dict[str, dict]):
+        self._vid = vid
+        self._docs = docs
+        self._locks = {u: threading.Lock() for u in docs}
+
+    def ensure(self, url: str) -> None:
+        lock = self._locks.get(url)
+        if lock is None:
+            return
+        with lock:
+            doc = self._docs.pop(url, None)
+            if doc is None:
+                return  # already shipped (or the attempt failed)
+            try:
+                rpc.call(
+                    f"http://{url}/admin/ec/receive_ecc?"
+                    f"volume={self._vid}", "POST",
+                    json.dumps(doc).encode(), 60.0,
+                    headers={**rpc.PRIORITY_LOW,
+                             **_flows.tag("ec.scatter")})
+            except (rpc.RpcError, OSError):
+                # Best effort: the holder recomputes from the body.
+                pass
+
+
+def _ecc_push_plan(vid: int, entries) -> _EccOncePush:
+    """Per-holder `.ecc` fragments from `(holder_url, sid, crcs)`
+    triples — the one place the fragment wire format (block key,
+    8-hex-digit CRCs) is written, shared by encode and rebuild
+    scatter."""
+    docs: dict[str, dict] = {}
+    for url, sid, crcs in entries:
+        doc = docs.setdefault(
+            url, {"block": SMALL_BLOCK_SIZE, "shards": {}})
+        doc["shards"][str(sid)] = [f"{c:08x}" for c in crcs]
+    return _EccOncePush(vid, docs)
+
+
+def _scatter_shard(url: str, vid: int, sid: int, path: str,
+                   budget: _ByteBudget,
+                   ecc_push: _EccOncePush | None = None) -> int:
+    """Push one encoded shard to its placement target.  The file is read
+    here, inside the budgeted worker, and `budget` caps total in-flight
+    bytes.  The fragment goes first, before budget is taken: workers
+    queued on a slow holder's fragment lock must wait empty-handed."""
+    if ecc_push is not None:
+        ecc_push.ensure(url)
+    size = os.path.getsize(path)
+    taken = budget.acquire(size)
+    try:
+        with open(path, "rb") as f:
+            payload = f.read()
+        if _fault.ARMED:
+            _fault.hit("ec.scatter", target=url, vid=vid, shard=sid)
+        rpc.call(f"http://{url}/admin/ec/receive_shard?"
+                 f"volume={vid}&shard={sid}", "POST", payload, 600.0,
+                 headers={**rpc.PRIORITY_LOW,
+                          **_flows.tag("ec.scatter")})
+        return size
+    finally:
+        budget.release(taken)

@@ -1,15 +1,23 @@
 """Batched EC rebuild of many volumes: whole shard files per device step.
 
-Port of the device half of seaweedfs_tpu/parallel/cluster_rebuild.py:
-`plan_repair_reads`, `_pad_to`, and `_rebuild_group_inner` as
-`rebuild_group`, with the survivor gather and the placement of rebuilt
-shards passed in as functions:
+Port of seaweedfs_tpu/parallel/cluster_rebuild.py.  Its device half is
+`rebuild_group` (the reference's `_rebuild_group_inner`), with the
+survivor gather and the placement of rebuilt shards passed in as
+functions:
 
 - ``fetch_rows(vid, used) -> rows``: the `used` survivor shards of one
   volume, in that order (bytes or uint8 arrays of one length);
-- ``place(vid, missing, shards, crcs)``: store the rebuilt shards (uint8
-  arrays, in `missing` order) and their `.ecc` block CRCs (one list per
-  shard from the device, or None when the CRCs were not fused).
+- ``place(vid, missing, shards, crcs) -> suffix``: store the rebuilt
+  shards (uint8 arrays, in `missing` order) and their `.ecc` block CRCs
+  (one list per shard from the device, or None when the CRCs were not
+  fused); the returned text (or None) ends the volume's report line.
+
+Its network half is `batch_rebuild`, the shell's `ec.rebuild -batch`:
+`plan_rebuilds` groups the cluster's degraded EC volumes by (codec,
+survivors, missing), `_fetch_shard` gathers survivors from their
+holders over HTTP with failover and deadlines, and `_scatter_volume`
+pushes the rebuilt shards (their device `.ecc` fragments first) to
+balanced targets (`_TargetPicker`) and mounts them.
 
 Every volume of a group shares a codec and lost the same shards, so one
 decode matrix covers the group; volumes are stacked on the "vol" axis in
@@ -32,21 +40,31 @@ per volume when every lost shard was repaired inside its locality group.
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from ..cluster import rpc
 from ..codecs import Codec, get_codec
 from ..ec import SMALL_BLOCK_SIZE, to_ext
 from ..ec.integrity import ShardChecksums, ecc_lock, file_block_crcs
+from ..ec.shard_bits import ShardBits
 from ..ec.volume_info import ec_codec_name
 from ..events import emit as emit_event
+from ..fault import registry as _fault
 from ..ops.crc_fold import fused_crc_enabled
+from ..stats import flows as _flows
 from ..stats import roofline as _roofline
-from ..stats.metrics import ec_repair_read_bytes_total, observe_batch_stage
-from .mesh import Mesh, make_mesh
+from ..stats.metrics import (ec_repair_read_bytes_total,
+                             observe_batch_stage, stage_attrs)
+from ..trace import root_span
+from ..utils import env_float as _env_float
+from . import mesh as _mesh
+from .mesh import Mesh
 from .sharded_codec import reconstruct_step, record_fenced_batch
 from .stream_pipeline import PipelineRecorder, run_pipeline
 
@@ -54,8 +72,96 @@ from .stream_pipeline import PipelineRecorder, run_pipeline
 _COL_ALIGN = 2048
 
 
+# Shard-fetch budgets: each holder attempt gets a bounded slice of a
+# total per-shard deadline, so one dead holder costs one attempt
+# timeout, never a hang that stalls the whole batch.
+FETCH_ATTEMPT_TIMEOUT = _env_float(
+    "SEAWEEDFS_TPU_EC_FETCH_TIMEOUT", 30.0)
+FETCH_TOTAL_DEADLINE = _env_float(
+    "SEAWEEDFS_TPU_EC_FETCH_DEADLINE", 180.0)
+
+
+def make_mesh(devices=None) -> Mesh:
+    """Default batch mesh: volumes data-parallel on "vol", byte columns
+    on "col" (2 when the device count is even).  `devices` defaults to
+    every visible card (raising without one)."""
+    devices = list(devices) if devices is not None \
+        else _mesh.make_mesh().device_list()
+    n = len(devices)
+    return _mesh.make_mesh(devices=devices,
+                           vol_axis=n // 2 if n % 2 == 0 else n)
+
+
 def _pad_to(n: int, align: int) -> int:
     return -(-n // align) * align
+
+
+@dataclass
+class RebuildPlan:
+    """Volumes grouped by (codec, survivor signature): every volume in
+    a group shares a codec and lost the same shards, so one decode
+    matrix (and one launch per sub-batch) covers the whole group."""
+
+    groups: dict[tuple[str, tuple[int, ...], tuple[int, ...]],
+                 list[tuple[int, dict[int, list[str]]]]] = \
+        field(default_factory=dict)
+    skipped: list[tuple[int, str]] = field(default_factory=list)
+
+
+def plan_rebuilds(env, vids=None) -> RebuildPlan:
+    """Group rebuildable EC volumes by (codec, present, missing).
+    Codec ids come from the /vol/list payload (heartbeats put "codec" on
+    every ec_shards entry), with env.ec_codec(vid) as the per-volume
+    fallback; a volume whose codec cannot be determined is skipped,
+    never guessed — decoding LRC shards with RS matrices would scatter
+    silently corrupt bytes cluster-wide."""
+    plan = RebuildPlan()
+    codecs: dict[int, str] = {}
+    try:
+        nodes = env.data_nodes()
+    except Exception:  # noqa: BLE001 — fall back to per-vid lookups
+        nodes = []
+    for n in nodes:
+        for e in n.get("ec_shards", []):
+            if e.get("codec"):
+                codecs[e["id"]] = e["codec"]
+    if vids is None:
+        vids = sorted({e["id"] for n in nodes for e in n["ec_shards"]})
+    for vid in vids:
+        name = codecs.get(vid)
+        if name is None:
+            getter = getattr(env, "ec_codec", None)
+            if getter is None:  # duck-typed env predating codecs: rs
+                name = "rs"
+            else:
+                try:
+                    name = getter(vid) or "rs"
+                except Exception as e:  # noqa: BLE001 — master hiccup
+                    plan.skipped.append(
+                        (vid, f"cannot determine codec: "
+                              f"{type(e).__name__}: {e}"))
+                    continue
+        try:
+            codec = get_codec(name)
+        except ValueError:
+            plan.skipped.append((vid, f"unknown codec {name!r}"))
+            continue
+        locs = env.ec_shard_locations(vid)
+        present = tuple(sorted(locs))
+        missing = tuple(s for s in range(codec.total_shards)
+                        if s not in locs)
+        if not missing:
+            continue
+        try:
+            codec.repair_plan(present, list(missing))
+        except ValueError:
+            plan.skipped.append(
+                (vid, f"only {len(present)} shards survive "
+                      f"({codec.name}: unrecoverable pattern)"))
+            continue
+        plan.groups.setdefault((codec.name, present, missing),
+                               []).append((vid, locs))
+    return plan
 
 
 def plan_repair_reads(codec: Codec, present, missing) -> dict:
@@ -81,14 +187,16 @@ def plan_repair_reads(codec: Codec, present, missing) -> dict:
 def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
                   mesh: Mesh, max_batch_bytes: int = 1 << 28,
                   depth: int | None = None,
-                  recorder: PipelineRecorder | None = None) -> list[str]:
+                  recorder: PipelineRecorder | None = None,
+                  stages: dict | None = None, progress=None) -> list[str]:
     """Streamed rebuild of one survivor-signature group: the producer
     gathers and stacks the next sub-batch while the device decodes the
     current one and the drain thread places the completed shards.
     `recorder` collects the stage spans; without one, a bounded recorder
     is made while `roofline.ARMED`, and armed, it is folded into
-    `roofline.LEDGER.note_pipeline` as "rebuild".  Returns one line per
-    volume."""
+    `roofline.LEDGER.note_pipeline` as "rebuild".  `stages` collects the
+    batch_* stage seconds and bytes.  Returns one line per volume, each
+    also handed to `progress`."""
     from .cluster_encode import (device_streams, mesh_on_cuda,
                                  pipeline_depth, side_streams)
     present, missing = tuple(present), tuple(missing)
@@ -111,7 +219,8 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
     rec = recorder
     if rec is None and _roofline.ARMED:
         rec = PipelineRecorder(maxlen=1024)
-    stages: dict = {}
+    if stages is None:
+        stages = {}
     out: list[str] = []
     saved = f" ({codec.name}: read {len(used)} shards vs " \
             f"{codec.data_shards} for RS)" \
@@ -200,13 +309,15 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
                 shard_crcs = [[int(c) for c in crcs[v, m, :nb]]
                               for m in range(len(missing))]
             scattered += sizes[v] * len(missing)
-            place(vid, missing, shards, shard_crcs)
+            placed = place(vid, missing, shards, shard_crcs)
             if all_local:
                 emit_event("ec.repair.local", vid=vid, codec=codec.name,
                            shard=list(missing), reads=len(used),
                            bytes=sizes[v] * len(used))
             out.append(f"volume {vid}: rebuilt shards {list(missing)}"
-                       + saved)
+                       + (placed or "") + saved)
+            if progress:
+                progress(out[-1])
         t_send = time.perf_counter()
         observe_batch_stage(stages, "batch_scatter", t_send - t_scatter,
                             scattered)
@@ -273,3 +384,235 @@ def batch_rebuild_files(bases, mesh: Mesh | None = None,
                                   _read_rows, _write_rebuilt, mesh,
                                   max_batch_bytes, depth, recorder)
     return messages
+
+
+# -- the network half: ec.rebuild -batch over the cluster --------------------
+
+def _fetch_shard(holders: list[str], vid: int, sid: int,
+                 attempt_timeout: float | None = None,
+                 total_deadline: float | None = None) -> bytes:
+    """Fetch one whole shard, failing over across every holder of it
+    (store_ec.go:264-320 walks all sourceDataNodes) with a second round
+    for transient errors.  Every attempt runs under `attempt_timeout`,
+    all of them together under `total_deadline`: a dead holder costs one
+    bounded attempt, and a shard with only dead holders fails the batch
+    within the deadline instead of hanging it."""
+    attempt_timeout = attempt_timeout or FETCH_ATTEMPT_TIMEOUT
+    total_deadline = total_deadline or FETCH_TOTAL_DEADLINE
+    deadline = time.monotonic() + total_deadline
+    errors: list[str] = []
+    permanent: set[str] = set()
+    for attempt in range(2):
+        for url in holders:
+            if url in permanent:
+                continue
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                errors.append(f"deadline {total_deadline:g}s exhausted")
+                raise rpc.RpcError(
+                    502, f"shard {vid}.{sid} unreachable within "
+                         f"deadline: " + "; ".join(errors[:6]))
+            try:
+                if _fault.ARMED:
+                    _fault.hit("ec.fetch_shard", holder=url, vid=vid,
+                               shard=sid)
+                data = rpc.call(
+                    f"http://{url}/admin/ec/shard_file?volume={vid}"
+                    f"&shard={sid}",
+                    timeout=min(attempt_timeout, remaining),
+                    headers={**rpc.PRIORITY_LOW,
+                             **_flows.tag("ec.gather")})
+                if not isinstance(data, (bytes, bytearray)):
+                    raise rpc.RpcError(
+                        410, f"shard {vid}.{sid}: non-binary reply")
+                return bytes(data)
+            except rpc.RpcError as e:
+                # A definitive 4xx (the holder lacks the shard) will not
+                # change on a retry; a 429 admission shed means "later".
+                if (400 <= e.status < 500 or e.status == 410) \
+                        and e.status != 429:
+                    permanent.add(url)
+                errors.append(f"{url} (try {attempt + 1}): {e}")
+            except Exception as e:  # noqa: BLE001 — transient: next
+                errors.append(
+                    f"{url} (try {attempt + 1}): {type(e).__name__}: {e}")
+    raise rpc.RpcError(
+        502, f"shard {vid}.{sid} unreachable on any holder: "
+             + "; ".join(errors[:6]))
+
+
+class _TargetPicker:
+    """Free-slot balanced placement for rebuilt shards, preferring nodes
+    that hold nothing of the volume (maximises survivors on node loss —
+    the same objective as balancedEcDistribution)."""
+
+    def __init__(self, env):
+        self.free: dict[str, int] = {}
+        for n in env.data_nodes():
+            held = sum(ShardBits(e["shard_bits"]).shard_id_count()
+                       for e in n["ec_shards"])
+            free = n["max_volume_count"] * 10 - len(n["volumes"]) * 10 \
+                - held
+            self.free[n["url"]] = max(free, 0)
+
+    def pick(self, holders: set[str]) -> str:
+        if not self.free:
+            raise rpc.RpcError(503, "no data nodes for rebuilt shards")
+        fresh = {u: f for u, f in self.free.items() if u not in holders}
+        pool = fresh if any(f > 0 for f in fresh.values()) else self.free
+        url = max(pool, key=lambda u: pool[u])
+        self.free[url] -= 1
+        return url
+
+
+def batch_rebuild(env, vids=None, mesh: Mesh | None = None,
+                  max_batch_bytes: int = 1 << 28, workers: int = 16,
+                  progress=None, depth: int | None = None) -> list[str]:
+    """Rebuild every missing EC shard across the cluster in batched
+    device steps.  Returns one line per volume.  `depth` overrides the
+    stream-pipeline depth (0 = serialized).  The mesh defaults to every
+    visible card (raising without one).
+
+    env: duck-typed cluster view (shell CommandEnv): ec_shard_locations,
+    data_nodes, vs_call."""
+    plan = plan_rebuilds(env, vids)
+    messages = [f"volume {vid}: SKIPPED — {why}; cannot rebuild"
+                for vid, why in plan.skipped]
+    if not plan.groups:
+        return messages
+    if mesh is None:
+        mesh = make_mesh()
+    picker = _TargetPicker(env)
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=workers)
+    try:
+        for (codec_name, present, missing), entries in \
+                sorted(plan.groups.items()):
+            messages += _rebuild_group(
+                env, mesh, pool, picker, get_codec(codec_name),
+                present, missing, entries, max_batch_bytes, progress,
+                depth)
+    finally:
+        # A failed group must not leave queued fetches or pushes running.
+        pool.shutdown(wait=False, cancel_futures=True)
+    return messages
+
+
+def _rebuild_group(env, mesh, pool, picker, codec, present, missing,
+                   entries, max_batch_bytes, progress,
+                   depth: int | None = None) -> list[str]:
+    """One (codec, survivor-signature) group over the wire — journaled
+    as ec.rebuild.start/finish with per-stage byte/second attrs and the
+    planner's planned-vs-RS read accounting, under a root span."""
+    vids = [vid for vid, _locs in entries]
+    locs_of = dict(entries)
+    report = plan_repair_reads(codec, present, missing)
+    with root_span("ec.batch_rebuild", "ec", volumes=len(vids),
+                   missing=list(missing), codec=codec.name):
+        emit_event("ec.rebuild.start", volumes=vids, batch=True,
+                   missing=list(missing), codec=codec.name,
+                   planned_read_shards=report["planned_read_shards"],
+                   rs_read_shards=report["rs_read_shards"])
+        t0 = time.perf_counter()
+        stages: dict[str, list[float]] = {}
+
+        def fetch_rows(vid, used):
+            return _fetch_rows(pool, vid, locs_of[vid], used)
+
+        def place(vid, missing, shards, crcs):
+            placed = _scatter_volume(
+                env, pool, picker, vid, locs_of[vid], missing,
+                [np.ascontiguousarray(s).tobytes() for s in shards],
+                shard_crcs=crcs)
+            return " -> " + ", ".join(f"{s}@{u}" for s, u in placed)
+
+        try:
+            out = rebuild_group(codec, present, missing, vids, fetch_rows,
+                                place, mesh, max_batch_bytes, depth,
+                                stages=stages, progress=progress)
+        except Exception as e:
+            emit_event("ec.rebuild.finish", severity="error",
+                       volumes=vids, batch=True, missing=list(missing),
+                       codec=codec.name,
+                       seconds=round(time.perf_counter() - t0, 6),
+                       error=f"{type(e).__name__}: {e}",
+                       **stage_attrs(stages))
+            raise
+        emit_event("ec.rebuild.finish", volumes=vids, batch=True,
+                   missing=list(missing), codec=codec.name,
+                   planned_read_shards=report["planned_read_shards"],
+                   rs_read_shards=report["rs_read_shards"],
+                   seconds=round(time.perf_counter() - t0, 6),
+                   **stage_attrs(stages))
+        return out
+
+
+def _fetch_rows(pool, vid, locs, used) -> list[bytes]:
+    """Fetch the `used` survivor shards of one volume in parallel, each
+    failing over across its holders (store_ec.go:322-376)."""
+    futs = [pool.submit(_fetch_shard, locs[sid], vid, sid)
+            for sid in used]
+    return [f.result() for f in futs]
+
+
+def _push_shard(vid: int, sid: int, payload: bytes, target: str,
+                sources: list[str], ecc_push=None) -> None:
+    """Push one rebuilt shard; the target pulls the .ecx index from a
+    source holder, so fail over across sources — a stale entry in the
+    location map must not sink the scatter."""
+    if ecc_push is not None:
+        # The target's device `.ecc` entries land before the first shard
+        # body, once per target, inside this worker (_EccOncePush).
+        ecc_push.ensure(target)
+    errors: list[str] = []
+    for src in sources:
+        try:
+            if _fault.ARMED:
+                _fault.hit("ec.scatter", target=target, vid=vid,
+                           shard=sid)
+            rpc.call(
+                f"http://{target}/admin/ec/receive_shard?volume={vid}"
+                f"&shard={sid}&ecx_source={src}",
+                "POST", payload, 600.0,
+                headers={**rpc.PRIORITY_LOW,
+                         **_flows.tag("ec.scatter")})
+            return
+        except rpc.RpcError as e:
+            # The target answered: its ecx pull from this source may be
+            # what failed, and another source can fix that.
+            errors.append(f"via {src}: {e}")
+        except Exception as e:
+            # The target is unreachable: no other source helps, and
+            # resending the payload per source would multiply the wait.
+            raise rpc.RpcError(
+                502, f"cannot place rebuilt shard {vid}.{sid}: target "
+                     f"{target} unreachable: {type(e).__name__}: {e}"
+            ) from None
+    raise rpc.RpcError(
+        502, f"cannot place rebuilt shard {vid}.{sid} on {target}: "
+             + "; ".join(errors[:4]))
+
+
+def _scatter_volume(env, pool, picker, vid, locs, missing,
+                    shards: list[bytes],
+                    shard_crcs=None) -> list[tuple[int, str]]:
+    """Push rebuilt shards to balanced targets, each pulling the .ecx
+    index alongside, then mount.  With `shard_crcs` (the device's
+    per-block CRC32-C of each rebuilt shard) the target gets its `.ecc`
+    entries first, so receive_shard skips its CPU pass over the body."""
+    holders = {u for urls in locs.values() for u in urls}
+    sources = sorted(holders)
+    placed = [(sid, picker.pick(holders)) for sid in missing]
+    pusher = None
+    if shard_crcs is not None:
+        from .cluster_encode import _ecc_push_plan
+        pusher = _ecc_push_plan(
+            vid, ((target, sid, crcs)
+                  for (sid, target), crcs in zip(placed, shard_crcs)))
+    futs = [pool.submit(_push_shard, vid, sid, payload, target,
+                        sources, pusher)
+            for (sid, target), payload in zip(placed, shards)]
+    for f in futs:
+        f.result()
+    for _sid, target in placed:
+        env.vs_call(target, "/admin/ec/mount", {"volume": vid})
+    return placed

@@ -1,7 +1,7 @@
-"""Both packages' control planes side by side, for the port's cluster
-tests (tests/test_torch_master.py, _topology.py, _rpc.py,
-_resilience.py, _tenancy.py, _slo.py, _lifecycle.py, _repair_daemon.py,
-_frontdoor.py, _security.py).
+"""Both packages' clusters side by side, for the port's cluster tests
+(tests/test_torch_master.py, _topology.py, _rpc.py, _resilience.py,
+_tenancy.py, _slo.py, _lifecycle.py, _repair_daemon.py, _security.py,
+_cluster*.py, _shell.py, _batch_*_live.py, _volume_server.py).
 
 `mod(pkg, name)` imports one package's module by its path below the
 package, `pair(name)` both (the JAX package's first).  `both(scenario)`
@@ -9,19 +9,30 @@ runs `scenario(pkg)` for each package with the module-global `random`
 seeded alike (topology cookies and placement picks read it), holds the
 two answers equal and returns the port's.
 
+`LiveCluster(pkg, root)` is one package's master and volume servers in
+this process (the port's on `device="cpu"`, the kernels' plain
+versions; the JAX package's under the suite's CPU platform), with the
+shell environment and client of the same package; the `pkg` fixture
+runs a test once per package.
+
 `count_plain_launches` lets chip_smoke's phases rehearse on the CPU.
 
 `hermetic_port_state` is the port's twin of the autouse fixture in
 tests/conftest.py, which resets only the JAX package's process globals;
 a test file uses it by importing it.  `pin_clocks` stands a settable
-clock in for `time` in every module whose answers carry the wall clock,
-in both packages, so that two masters fed the same beats answer alike.
+clock in for `time` in every module whose answers or bytes carry the
+wall clock, in both packages, so that two masters fed the same beats,
+or two clusters fed the same writes, answer alike: needle timestamps,
+the volume servers' location caches, scrub stamps and journal events
+then match.
 """
 
 from __future__ import annotations
 
 import importlib
+import os
 import random
+import signal
 import time
 
 import pytest
@@ -32,13 +43,20 @@ import torch
 torch.set_num_threads(1)
 
 PACKAGES = ("seaweedfs_tpu", "seaweedfs_tpu_torch")
+PORT = PACKAGES[1]
 # Modules whose answers carry time.time(): heartbeat ages and sweeps,
 # SLO exemplars, usage snapshots, the lifecycle and repair daemons'
-# histories, JWT expiries.
+# histories, JWT expiries; and the volume server's: needle
+# last-modified and append stamps, the location caches' ages, scrub
+# stamps, journal events and flow samples.
 CLOCKED = ("cluster.master", "topology.topology", "stats.slo",
            "tenancy.accounting", "lifecycle.daemon", "cluster.repair_daemon",
-           "utils.security")
+           "utils.security", "cluster.volume_server", "storage.volume",
+           "storage.scrub", "events.journal", "stats.flows")
 EPOCH_S = 1_700_000_000.0
+# A live-cluster test's own deadline: several times its slowest run on a
+# loaded host, so that a hung server fails the test, not the suite.
+CLUSTER_DEADLINE_S = 300
 
 
 def mod(pkg: str, name: str):
@@ -68,23 +86,29 @@ def outcome(fn, *args, **kw):
         return ("raise", type(e).__name__, str(e))
 
 
-@pytest.fixture(autouse=True)
-def hermetic_port_state():
-    """The port's per-host breakers, armed faults, wire-flow ledger and
-    chunk cache are process-global: start and end every test clean."""
+def _reset_port_globals() -> None:
     from seaweedfs_tpu_torch import fault
     from seaweedfs_tpu_torch.cluster import resilience
-    from seaweedfs_tpu_torch.stats import flows
-    from seaweedfs_tpu_torch.storage import chunk_cache
-    resilience.reset_breakers()
+    from seaweedfs_tpu_torch.stats import flows, roofline
+    from seaweedfs_tpu_torch.storage import chunk_cache, remote_cache
     fault.disarm_all()
+    resilience.reset_breakers()
     flows.LEDGER.reset()
     chunk_cache.CACHE.reset()
+    remote_cache.CACHE.reset()
+    roofline.LEDGER.reset()
+
+
+@pytest.fixture(autouse=True)
+def hermetic_port_state():
+    """The port's per-host breakers, armed faults, wire-flow ledger,
+    chunk and tier block caches and roofline ledger (which a volume
+    server's heartbeat carries) are process-global: start and end every
+    test clean.  A volume server's EC location caches and scrub daemon
+    live on the server, which each test builds anew."""
+    _reset_port_globals()
     yield
-    fault.disarm_all()
-    resilience.reset_breakers()
-    flows.LEDGER.reset()
-    chunk_cache.CACHE.reset()
+    _reset_port_globals()
 
 
 class Clock:
@@ -96,6 +120,9 @@ class Clock:
 
     def time(self) -> float:
         return self.now
+
+    def time_ns(self) -> int:
+        return int(self.now * 1e9)
 
     def __getattr__(self, name):
         return getattr(time, name)
@@ -110,10 +137,109 @@ def pin_clocks(monkeypatch, now: float = EPOCH_S) -> Clock:
     return clock
 
 
+@pytest.fixture
+def cluster_deadline():
+    """Raise TimeoutError in the test (its teardown still runs) once it
+    has run CLUSTER_DEADLINE_S; test files of live clusters use it
+    through `pytest.mark.usefixtures`."""
+    def expire(signum, frame):
+        raise TimeoutError(f"live-cluster test ran past its "
+                           f"{CLUSTER_DEADLINE_S} s deadline")
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, CLUSTER_DEADLINE_S)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+@pytest.fixture(params=PACKAGES)
+def pkg(request) -> str:
+    """Runs a test once for the JAX package and once for the port."""
+    return request.param
+
+
+def device_kw(pkg: str) -> dict:
+    """The port's servers and shell run on the CPU here."""
+    return {"device": "cpu"} if pkg == PORT else {}
+
+
+class LiveCluster:
+    """One package's master and `n` volume servers in this process, on
+    localhost ports.  `racks` names each server's rack; the master's
+    pulse defaults to 60 s so that no dead-node sweep empties the
+    topology in a slow test."""
+
+    def __init__(self, pkg: str, root, n: int = 3, racks=None,
+                 master_kw: dict | None = None, vs_kw: dict | None = None):
+        self.pkg = pkg
+        self.root = str(root)
+        self.rpc = mod(pkg, "cluster.rpc")
+        self.master = mod(pkg, "cluster.master").MasterServer(
+            **{"volume_size_limit_mb": 64, "meta_dir": self.root,
+               "pulse_seconds": 60, **(master_kw or {})})
+        self.master.start()
+        self.vs_kw = {"pulse_seconds": 60, **(vs_kw or {})}
+        self.servers = []
+        self._envs: list = []
+        try:
+            for i in range(n):
+                self.add_server(rack=racks[i] if racks else "DefaultRack")
+        except BaseException:
+            self.stop()
+            raise
+
+    def add_server(self, **kw):
+        d = os.path.join(self.root, f"vs{len(self.servers)}")
+        os.makedirs(d, exist_ok=True)
+        vs = mod(self.pkg, "cluster.volume_server").VolumeServer(
+            self.master.url(), [d], **{**self.vs_kw, **kw},
+            **device_kw(self.pkg))
+        vs.start()
+        self.servers.append(vs)
+        return vs
+
+    def url(self) -> str:
+        return self.master.url()
+
+    def client(self):
+        return mod(self.pkg, "cluster.client").WeedClient(self.url())
+
+    def env(self):
+        e = mod(self.pkg, "shell").CommandEnv(self.url(),
+                                              **device_kw(self.pkg))
+        self._envs.append(e)
+        return e
+
+    def run(self, env, line: str) -> str:
+        return mod(self.pkg, "shell").run_command(env, line)
+
+    def freshen(self) -> None:
+        """A full heartbeat from every live server, and empty EC
+        location caches, so the next lookups see the cluster as is."""
+        for vs in self.servers:
+            if not vs._stop.is_set():
+                vs._send_heartbeat(full=True)
+            vs._ec_loc_cache.clear()
+
+    def server(self, url: str):
+        return next(vs for vs in self.servers if vs.url() == url)
+
+    def stop(self) -> None:
+        for e in self._envs:
+            e.close()
+        for vs in self.servers:
+            if not vs._stop.is_set():
+                vs.stop()
+        self.master.stop()
+
+
 def count_plain_launches(monkeypatch) -> None:
     """On the CPU the kernel wrappers run their plain versions and count
     no launch; for a rehearsal of chip_smoke's phases count each
-    OUTERMOST plain K1/K2 call as one launch of its instantiation (K2's
+    OUTERMOST plain K1/K2 call as one launch of its instantiation, and
+    as a volume-axis launch when it carries more than one volume (K2's
     plain version calls K1's, and with a volume axis both loop)."""
     from seaweedfs_tpu_torch.ops import coder_cuda as cc
     depth = [0]
@@ -129,6 +255,8 @@ def count_plain_launches(monkeypatch) -> None:
                 wrapper.launches += 1
                 wrapper.variant_launches[variants[pick(
                     shards.shape[-2], masks.shape[0] // 8)]] += 1
+                if shards.dim() == 3 and shards.shape[0] > 1:
+                    wrapper.volume_launches += 1
             return out
         return inner
 

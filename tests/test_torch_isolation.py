@@ -121,6 +121,31 @@ with tempfile.TemporaryDirectory() as d:
     assert roofline.LEDGER.recent(1)[0]["achieved"] is not None
     assert roofline.LEDGER.conservation()["ok"]
     assert roofline.LEDGER.pipelines()
+    # The cluster slice: master, volume servers, client and shell.
+    from seaweedfs_tpu_torch.cluster.client import WeedClient
+    from seaweedfs_tpu_torch.cluster.master import MasterServer
+    from seaweedfs_tpu_torch.cluster.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    master = MasterServer(meta_dir=os.path.join(d, "m"), pulse_seconds=60)
+    master.start()
+    servers = []
+    for i in range(3):
+        servers.append(VolumeServer(master.url(), [os.path.join(d, f"v{i}")],
+                                    pulse_seconds=60, device="cpu"))
+        servers[-1].start()
+    client = WeedClient(master.url())
+    fid = client.upload_data(payloads[1])
+    vid = fid.split(",")[0]
+    env = CommandEnv(master.url(), device="cpu")
+    run_command(env, "lock")
+    assert "ec shards" in run_command(env, f"ec.encode -volumeId {vid} -batch")
+    for vs in servers:
+        vs._send_heartbeat(full=True)
+    assert client.download(fid) == payloads[1]
+    env.close()
+    for vs in servers:
+        vs.stop()
+    master.stop()
 assert not any(sys.modules.get(n) for n in ("jax", "jaxlib", "seaweedfs_tpu"))
 print("ISOLATED-OK")
 """
@@ -180,6 +205,23 @@ def test_port_master_entry_point_with_jax_and_reference_blocked(tmp_path):
         proc.terminate()
         assert proc.wait(30) == 0
     assert "Traceback" not in (tmp_path / "master.log").read_text()
+
+
+@pytest.mark.parametrize("command", ["volume", "shell", "server"])
+def test_card_entry_points_refuse_without_a_card(command, tmp_path):
+    """`python -m seaweedfs_tpu_torch volume|shell|server` without
+    -device=cpu exit non-zero with resolve_device's reason on a host
+    without a card, before serving or dialing anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = _run([sys.executable, "-c", _BLOCKED_MASTER, command,
+              f"-dir={tmp_path / 'v'}", f"-mdir={tmp_path / 'm'}",
+              "-mserver=127.0.0.1:1", "-master=127.0.0.1:1", "volume.list"],
+             cwd=str(tmp_path))
+    assert r.returncode != 0
+    assert "no CUDA device is available" in r.stderr
+    assert "Traceback" not in r.stderr
+    assert not (tmp_path / "v").exists()
 
 
 def _sources():

@@ -1,8 +1,8 @@
 """The port's data-lifecycle policy engine and daemon (lifecycle/)
 against seaweedfs_tpu's: the policy-grammar cases and the daemon's unit
 cases of tests/test_lifecycle.py, each run for both packages with the
-answers held equal.  The end-to-end tiering and TTL cases need a volume
-server (ROADMAP queue 1, slice 8b)."""
+answers held equal.  The end-to-end tiering and TTL cases run on live
+volume servers in tests/test_torch_volume_planes.py."""
 
 from __future__ import annotations
 

@@ -3,21 +3,21 @@ seaweedfs_tpu's: the master-only cases of tests/test_repair_daemon.py
 (a returning node cancels its queued repair, the dead-node sweep
 snapshots holdings before it unregisters, the failure-domain audit
 warns and never answers 503), each run for both packages with the
-journal events and reports held equal; and the EC rebuild branch, whose
-network half comes with the volume server (ROADMAP queue 1, slice 8b):
-neither a disarmed daemon nor the replica path reaches it, and reaching
-it fails loudly."""
+journal events and reports held equal; and the EC rebuild branch on a
+live cluster of each package, rebuilding a lost shard holder's shards
+byte-equal to the originals."""
 
 from __future__ import annotations
 
 import json
+import random
 
 import pytest
+import torch
 
-from _torch_cluster import (both, hermetic_port_state,  # noqa: F401
-                            mod, pin_clocks)
-from seaweedfs_tpu_torch.cluster.master import MasterServer
-from seaweedfs_tpu_torch.cluster.repair_daemon import RepairDaemon
+from _torch_cluster import (PACKAGES, PORT, LiveCluster, both,  # noqa: F401
+                            cluster_deadline, hermetic_port_state, mod,
+                            pin_clocks)
 
 pytestmark = pytest.mark.torch
 
@@ -134,30 +134,85 @@ def test_placement_audit_warns_never_503(monkeypatch):
     both(run)
 
 
-def test_rebuild_ec_is_not_reached_and_fails_loudly(monkeypatch):
-    """A disarmed daemon never enqueues, the replica path never calls the
-    EC rebuild, and reaching it raises NotImplementedError (its network
-    half is slice 8b) instead of reporting success."""
-    reached = []
-    real = RepairDaemon._rebuild_ec
-    monkeypatch.setattr(RepairDaemon, "_rebuild_ec",
-                        lambda self, t: reached.append(t.vid))
-    m = MasterServer(port=0)
-    try:
-        vol = {"id": 11, "collection": "", "size": 0, "file_count": 0,
-               "replica_placement": 1}
-        _beat(m, {"ip": "127.0.0.1", "port": 7101, "volumes": [vol]})
-        # An EC stripe short of 4 shards: a deficit the daemon sees.
-        _beat(m, {"ip": "127.0.0.1", "port": 7102, "ec_shards": [
-            {"id": 12, "shard_bits": (1 << 10) - 1, "collection": ""}]})
-        assert {t.kind for t in m.repair.scan()} == {"replicate", "ec"}
-        m.repair.tick()  # disarmed: nothing is enqueued
-        assert not m.repair._queue and reached == []
-        out = m.repair.run_now(kinds=["replicate"], timeout=10.0)
-        assert reached == [] and out["results"]
-        assert all(r["kind"] == "replicate" for r in out["results"])
-        task = next(t for t in m.repair.scan() if t.kind == "ec")
-        with pytest.raises(NotImplementedError, match="8b"):
-            real(m.repair, task)
-    finally:
-        m.server.stop()
+def _spread_ec(cluster, blob: bytes):
+    """Encode one volume rs(10,4) on its holder, spread the shards 5/5/4
+    over the first three servers and drop the original."""
+    rpc = cluster.rpc
+    client = cluster.client()
+    fid = client.upload_data(blob, collection="ecrep")
+    vid = int(fid.split(",")[0])
+    src = client.lookup(vid)[0]["url"]
+    rpc.call_json(f"http://{src}/admin/ec/generate", "POST", {"volume": vid})
+    spread = dict(zip((vs.url() for vs in cluster.servers),
+                      ([0, 1, 2, 3, 4], [5, 6, 7, 8, 9], [10, 11, 12, 13])))
+    for url, shards in spread.items():
+        if url != src:
+            rpc.call_json(f"http://{url}/admin/ec/copy_shard", "POST",
+                          {"volume": vid, "source": src, "shards": shards,
+                           "copy_ecx": True})
+    for url, shards in spread.items():
+        rpc.call_json(f"http://{url}/admin/ec/mount", "POST", {"volume": vid})
+        rpc.call_json(f"http://{url}/admin/ec/delete_shards", "POST",
+                      {"volume": vid, "shards": [
+                          s for s in range(14) if s not in shards]})
+    rpc.call_json(f"http://{src}/admin/delete_volume", "POST",
+                  {"volume": vid})
+    cluster.freshen()
+    return vid, fid
+
+
+@pytest.mark.usefixtures("cluster_deadline")
+def test_armed_daemons_rebuild_lost_ec_shards_live(tmp_path, monkeypatch):
+    """Both packages' masters armed with -repair, a live cluster of four
+    volume servers, one RS volume spread 5/5/4: the 4-shard holder dies
+    and the dead-node sweep unregisters it, leaving the stripe at its
+    decode minimum.  Each daemon's EC branch (`_rebuild_ec` over the
+    package's `batch_rebuild`) rebuilds shards 10-13 byte-equal to the
+    originals, the needle reads back, and no EC deficit is left."""
+    pin_clocks(monkeypatch)
+    blob = bytes(range(256)) * 1024
+    rebuilt = {}
+    for pkg in PACKAGES:
+        random.seed(0)
+        cluster = LiveCluster(pkg, tmp_path / pkg, n=4, master_kw={
+            "volume_size_limit_mb": 16, "repair_enabled": True})
+        try:
+            master, servers = cluster.master, cluster.servers
+            if pkg == PORT:
+                master.repair._mesh = mod(
+                    pkg, "parallel.cluster_rebuild").make_mesh(
+                        [torch.device("cpu")])
+            vid, fid = _spread_ec(cluster, blob)
+            holder = servers[2]
+            originals = {sid: bytes(cluster.rpc.call(
+                f"http://{holder.url()}/admin/ec/shard_file?volume={vid}"
+                f"&shard={sid}")) for sid in range(10, 14)}
+            holder.stop()
+            dn = next(n for n in master.topo.leaves()
+                      if n.url() == holder.url())
+            dn.last_seen = 0.0
+            master._sweep_dead_nodes()
+            locs = master.topo.lookup_ec_shards(vid)
+            assert {s for s, dns in locs.locations.items() if dns} == \
+                set(range(10))
+            out = master.repair.run_now(kinds=["ec"], timeout=120.0)
+            assert any(r["outcome"] == "ok" and r["kind"] == "ec"
+                       for r in out["results"]), out
+            locs = master.topo.lookup_ec_shards(vid)
+            assert {s for s, dns in locs.locations.items() if dns} == \
+                set(range(14))
+            assert not [t for t in master.repair.scan() if t.kind == "ec"]
+            got = {}
+            for sid in range(10, 14):
+                url = locs.locations[sid][0].url()
+                got[sid] = bytes(cluster.rpc.call(
+                    f"http://{url}/admin/ec/shard_file?volume={vid}"
+                    f"&shard={sid}"))
+            assert got == originals
+            cluster.freshen()
+            assert bytes(cluster.rpc.call(
+                f"http://{servers[0].url()}/{fid}")) == blob
+            rebuilt[pkg] = got
+        finally:
+            cluster.stop()
+    assert rebuilt[PORT] == rebuilt[PACKAGES[0]]

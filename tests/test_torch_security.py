@@ -143,17 +143,19 @@ def test_secured_masters_mint_equal_tokens(monkeypatch):
 def test_dispatcher_lists_only_the_ported_commands(capsys):
     assert command.main(["-h"]) == 0
     out = capsys.readouterr().out
-    assert "master" in out and "volume " not in out
-    assert command.main(["volume"]) == 2
+    for name in ("master", "volume", "server", "shell", "upload",
+                 "download", "version"):
+        assert f"  {name} " in out
+    assert "filer " not in out and "backup " not in out
+    assert command.main(["filer"]) == 2
     assert "unknown command" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("kwargs,what", [
     ({"peers": ["127.0.0.1:1", "127.0.0.1:2"]}, "raft"),
-    ({"admin_scripts": "ec.encode -fullPercent=95"}, "shell"),
 ])
 def test_unported_master_features_raise(kwargs, what):
-    """Raft (-peers) and the admin-script cron come with slice 8b: asking
-    for either fails instead of running without it."""
+    """Raft (-peers) comes with slice 8c: asking for it fails instead of
+    running without it."""
     with pytest.raises(NotImplementedError, match=what):
         MasterServer(**kwargs)

@@ -4,7 +4,8 @@ against seaweedfs_tpu's: the cases of tests/test_slo.py that need no
 volume server, each run for both packages with injected clocks and the
 answers (quantiles, burn states, exemplars, labels) held equal; plus the
 master's half of the aggregation cases, with heartbeats standing in for
-the volume servers (those wait for ROADMAP queue 1, slice 8b)."""
+the volume servers (the live-server cases are in
+tests/test_torch_volume_planes.py)."""
 
 from __future__ import annotations
 

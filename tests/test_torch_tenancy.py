@@ -4,8 +4,9 @@ DRR fairness, usage ledger and rollup, per-tenant chunk-cache caps) run
 for both packages with their answers held equal, and the master's half
 of its end-to-end cases (403 QuotaExceeded at assign from the
 heartbeat-fed rollup, the quota event, the rollup surviving a restart,
-429 for a tenant over its rate, a clean scrape).  The cases that need a
-volume server or a filer wait for them (ROADMAP queue 1, slice 8b)."""
+429 for a tenant over its rate, a clean scrape).  The volume-server
+cases are in tests/test_torch_volume_planes.py; those that need a filer
+wait for it (ROADMAP queue 1, slice 11)."""
 
 from __future__ import annotations
 
