@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--dat-mib 1024] [--batch-div 1]
-                          [--live-mib 1024]
+                          [--live-mib 1024] [--ha-mib 1024]
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -168,9 +168,42 @@ Phases; any failure raises and the script exits non-zero:
              with V = 2 while both last, one K1 per lost interval read,
              the rebuild one launch per sub-batch.
 
+11. ha     — an HA cluster, its mirror and the autopilot: upstream's
+             `weed master -peers=m1,m2,m3 -volumeSizeLimitMB=30000
+             -defaultReplication=000 -repair -repair.delay=3` (three raft
+             masters) and four `weed volume -max=7 -replicate.peer=<standby
+             master> -device=cuda` servers in 2 racks x 2, mirroring into
+             a standby of one master and two volume servers; every role a
+             `python -m seaweedfs_tpu_torch` process, the size limit cut
+             to --ha-mib.  One collection's volume fills past 95 %
+             through WeedClient with all three masters as seeds (8
+             threads) while the raft leader is SIGKILLed at 40 %: every
+             acked write reads back at the end, no file id or needle key
+             repeats, the seconds to a new leader and the client errors
+             retried are logged.  `weed backup` (full, started with the
+             writes; incremental after the last one), `weed fix` and
+             `weed export` on the copy, whose needle set (id, cookie,
+             size, CRC) must equal the primary's.  Every shipper drains;
+             `cluster.mirror.status` says CAUGHT UP and the standby's
+             fsck CRC map of the volume (HEAD X-Needle-Checksum of every
+             needle through each master) equals the primary's.  `ec.encode
+             -volumeId` through a `weed shell` process on each cluster (K2
+             10->4 in each holder, as many as write_ec_files of the same
+             .dat here); the 14 shards and .ecc entries of the two
+             clusters are compared by sha256 (and the .dat files, where
+             they differ).  A primary holder of 1-4 shards is SIGKILLed;
+             300 seeded degraded reads (K1 10->1 in the survivors, one
+             per interval on a lost shard); the new leader's repair
+             daemon rebuilds the lost shards (one batched K2 decode step
+             in the leader's process, read from its /cluster/device
+             rows), each equal to its original; every needle reads back.
+             `cluster.check`, `cluster.roofline` (the card's K1/K2 rows),
+             `cluster.flows` and `events.ls` on the leader; `weed
+             benchmark -n 20000 -size 1024 -c 16` against it.
+
 Phase 6 runs before phase 8, phase 8 before phase 9, phase 9 before phase
-10, and phase 10 before phase 5, whose timings include phase 6's shapes;
-phase 7 runs last.
+10, phase 10 before phase 11, and phase 11 before phase 5, whose timings
+include phase 6's shapes; phase 7 runs last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
@@ -184,8 +217,12 @@ p50/p99 ms, full-beat apply ms, the master's RSS, the device rows), a
 {"live_cluster": ...} line (walls and GB/s of the write, both encodes,
 the rebuild and the read-back, degraded-read p50/p99, launches per kernel
 and step in the shell's process and the volume servers, device busy
-share, every process's RSS), nvidia-smi's line, a {"kernels": [...]}
-line, and last {"ok": true, "device": {...}}.
+share, every process's RSS), a {"ha_cluster": ...} line (walls and GB/s
+per step, seconds to a new leader, to mirror convergence and to repair,
+degraded-read p50/p99, the backup's and the mirror's checks, benchmark
+rates, launches per kernel, step and process, every process's RSS),
+nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -311,6 +348,28 @@ LIVE_READS = 300
 # 6's BATCH_BYTES; `ec.rebuild -batch` keeps its default.
 LIVE_BATCH_MB = 2048
 LIVE_REBUILD_BUDGET = 256 << 20  # ec.rebuild's -maxBatchMB default
+# Phase 11: upstream's HA layout, `weed master -peers=m1,m2,m3` (three
+# raft masters, each armed with -repair), HA_NODES `weed volume -max=7
+# -replicate.peer=<standby master>` servers in HA_RACKS racks, and a
+# standby of one master and HA_STANDBY_NODES volume servers.
+HA_MASTERS = 3
+HA_NODES = 4
+HA_RACKS = 2
+HA_STANDBY_NODES = 2
+HA_MAX_VOLUMES = 7
+HA_REPLICATION = "000"
+HA_LIMIT_MB = 1024  # --ha-mib
+HA_COLLECTION = "ha"
+HA_FILLER = "hafill"  # empty volumes in every other slot during the write
+HA_BACKUP_PERCENT = 20  # the full `weed backup` starts as it passes this
+HA_KILL_PERCENT = 40  # the raft leader is killed as the volume passes this
+HA_FULL_PERCENT = 95
+HA_WRITERS = 8
+HA_READS = 300
+HA_REPAIR_DELAY_S = 3  # -repair.delay
+HA_BENCH_N = 20000  # upstream's `weed benchmark -n` is 1048576
+HA_BENCH_SIZE = 1024
+HA_BENCH_C = 16
 # `python -m seaweedfs_tpu_torch <args>` (runpy.run_module is what -m
 # runs) with the JAX package and JAX itself blocked in sys.modules.
 MASTER_LAUNCH = (
@@ -2008,14 +2067,15 @@ def phase_cluster(torch, dev, args) -> dict:
 # -- phase 10: a live port cluster on the card -------------------------------
 
 
-def port_process(args: list[str], log_path: str):
+def port_process(args: list[str], log_path: str,
+                 launch: str = MASTER_LAUNCH):
     """`python -m seaweedfs_tpu_torch <args>` with jax, jaxlib and
-    seaweedfs_tpu blocked, its output in log_path."""
+    seaweedfs_tpu blocked (`launch`), its output in log_path."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
     with open(log_path, "w") as log_f:
         return subprocess.Popen(
-            [sys.executable, "-c", MASTER_LAUNCH, *args], cwd=REPO, env=env,
+            [sys.executable, "-c", launch, *args], cwd=REPO, env=env,
             stdout=log_f, stderr=subprocess.STDOUT)
 
 
@@ -2127,6 +2187,42 @@ def rebuild_launches(lost: dict, shard_bytes: dict,
             i += max(1, min(len(group) - i, budget // per_vol))
             n += 1
     return n
+
+
+def read_every_needle(masters: list[str], fids: dict, blob,
+                      workers: int) -> float:
+    """Download every fid of `fids` ({fid: (offset, size)} into `blob`)
+    through WeedClient from `workers` threads; fail on any error or
+    differing byte.  Returns the wall."""
+    from seaweedfs_tpu_torch.cluster.client import WeedClient
+    it = iter(sorted(fids.items()))
+    lock = threading.Lock()
+    errors: list = []
+
+    def read_back():
+        c = WeedClient(masters)
+        while True:
+            with lock:
+                nxt = next(it, None)
+            if nxt is None:
+                return
+            fid, (off, size) = nxt
+            try:
+                ok = c.download(fid) == blob[off:off + size]
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{fid}: {e!r}")
+                return
+            if not ok:
+                errors.append(f"{fid}: bytes differ")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=read_back) for _ in range(workers)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"read-back failed: {errors[:3]}")
+    return time.perf_counter() - t0
 
 
 def phase_live_cluster(torch, dev, args) -> dict:
@@ -2477,35 +2573,7 @@ def phase_live_cluster(torch, dev, args) -> dict:
             "volume_servers": vs_kernel_launches(step)}
 
         # -- every needle back, byte for byte -----------------------------
-        items = sorted(fids.items())
-        it = iter(items)
-        read_errors: list = []
-
-        def read_back():
-            c = WeedClient(murl)
-            while True:
-                with lock:
-                    nxt = next(it, None)
-                if nxt is None:
-                    return
-                fid, (off, size) = nxt
-                try:
-                    ok = c.download(fid) == blob[off:off + size]
-                except Exception as e:  # noqa: BLE001 — reported below
-                    read_errors.append(f"{fid}: {e!r}")
-                    return
-                if not ok:
-                    read_errors.append(f"{fid}: bytes differ")
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=read_back)
-                   for _ in range(LIVE_WRITERS)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        wall = time.perf_counter() - t0
-        check(not read_errors, f"read-back failed: {read_errors[:3]}")
+        wall = read_every_needle([murl], fids, blob, LIVE_WRITERS)
         out["walls_s"]["read_back"] = wall
         out["gb_s"]["read_back"] = written / wall / 1e9
         rows5 = node_device_rows(murl, live, time.time(), procs)
@@ -2543,26 +2611,861 @@ def phase_live_cluster(torch, dev, args) -> dict:
     return out
 
 
-def live_busy_share(live: dict, timings: dict) -> dict:
-    """Phase 10's device busy share per step: launches x the kernel
-    table's ms at the nearest shape (an upper bound where the step's
-    shapes are smaller) over the step's wall.  The volume axis costs V
-    times one volume, so a V = 2 encode step counts twice."""
-    k1, k2 = timings["rs_bitmatrix"], timings["rs_bitmatrix_crc"]
-    rebuild_ms = next(v["ms"] for k, v in k2.items()
-                      if k.startswith("at_rebuild"))
-    launches, walls = live["launches"], live["walls_s"]
-    batch = launches["encode_batch"]["shell"]
-    device_ms = {
-        "encode_per_volume": launches["encode_per_volume"][
-            "volume_servers"]["rs_bitmatrix_crc"] * k2["ms"],
-        "encode_batch": (batch["rs_bitmatrix_crc"]
-                         + batch["volume_axis"]) * k2["ms"],
-        "degraded_reads": launches["degraded_reads"]["volume_servers"][
-            "rs_bitmatrix"] * k1["at_10_to_1_1mib"]["ms"],
-        "rebuild_batch": launches["rebuild_batch"]["shell"][
-            "rs_bitmatrix_crc"] * rebuild_ms}
-    return {step: ms / 1e3 / walls[step] for step, ms in device_ms.items()}
+def busy_share(timings: dict, walls: dict, steps: dict) -> dict:
+    """Device busy share per step: launches x the kernel table's ms at
+    the step's shape (an upper bound where the step's shapes are
+    smaller) over the step's wall.  `steps` maps a step to (kernel,
+    launches, shape): the shape names a row of the kernel's table by
+    its prefix, None its headline shape."""
+    def ms(kernel, shape):
+        rows = timings[kernel]
+        return rows["ms"] if shape is None else next(
+            v["ms"] for k, v in rows.items() if k.startswith(shape))
+    return {step: n * ms(kernel, shape) / 1e3 / walls[step]
+            for step, (kernel, n, shape) in steps.items()}
+
+
+# -- phase 11: an HA cluster, its mirror and the autopilot on the card -------
+
+
+# A `weed` command held until a file appears: its first argument names
+# the file, the rest are the command line.  Once its imports are done it
+# creates that name + ".ready".
+HELD = (
+    "import os, time\n"
+    "import seaweedfs_tpu_torch.command\n"
+    "open(sys.argv[1] + '.ready', 'w').close()\n"
+    "while not os.path.exists(sys.argv[1]):\n"
+    "    time.sleep(0.01)\n"
+    "del sys.argv[1]\n")
+
+
+def port_launch(dev, before_run: str = "") -> str:
+    """The launch snippet of phase 11's processes: MASTER_LAUNCH with
+    `before_run` (such as HELD) ahead of the run, and, when the phase
+    rehearses on the CPU, a CPU default for the batch mesh, which the
+    leader's repair daemon builds with make_mesh() (every visible card,
+    raising without one)."""
+    if dev.type != "cuda":
+        before_run = (
+            "import torch\n"
+            "from seaweedfs_tpu_torch.parallel import cluster_rebuild as _cr\n"
+            "_mk = _cr.make_mesh\n"
+            "_cr.make_mesh = lambda devices=None: _mk(\n"
+            "    devices or [torch.device('cpu')])\n") + before_run
+    return MASTER_LAUNCH.replace("runpy.run_module",
+                                 before_run + "runpy.run_module", 1)
+
+
+def master_roles(urls: list[str]) -> dict:
+    """{master url: /cluster/status} of every master that answers."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    out = {}
+    for u in urls:
+        with contextlib.suppress(OSError, rpc.RpcError):
+            out[u] = rpc.call(u + "/cluster/status", timeout=2.0)
+    return out
+
+
+def the_leader(urls: list[str]) -> str | None:
+    """The one master of `urls` that says it leads, else None."""
+    roles = master_roles(urls)
+    leaders = [u for u, st in roles.items() if st.get("is_leader")]
+    return leaders[0] if len(leaders) == 1 else None
+
+
+def run_port(args: list[str], log_path: str, launch: str, procs,
+             timeout: float = 600.0) -> tuple[str, float, float]:
+    """A short-lived `python -m seaweedfs_tpu_torch` process (shell,
+    backup, fix, export, benchmark) run to its end: its output, wall
+    and RSS sampled while it runs.  Fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    p = port_process(args, log_path, launch)
+    rss = 0.0
+    try:
+        while p.poll() is None:
+            with contextlib.suppress(OSError, RuntimeError):
+                rss = max(rss, rss_mib(p.pid))
+            for q in procs:
+                check(q.poll() is None, f"{args[0]}: a cluster process "
+                                        f"exited ({q.args[3:6]})")
+            check(time.perf_counter() - t0 < timeout,
+                  f"{' '.join(args[:3])} hung")
+            time.sleep(0.1)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    check(p.returncode == 0,
+          f"{' '.join(args[:3])} exited {p.returncode}: {text[-2000:]}")
+    return text, wall, rss
+
+
+def needle_set(dat_path: str) -> dict:
+    """{needle id: (cookie, size, crc)} of the live needles of a .dat,
+    in append order (the newest record per id wins, a tombstone erases)."""
+    from seaweedfs_tpu_torch.storage.volume_scanner import scan_volume_file
+    live: dict = {}
+    for n, _off, _total in scan_volume_file(dat_path):
+        if n.size <= 0:
+            live.pop(n.id, None)
+        else:
+            live[n.id] = (n.cookie, n.size, n.checksum)
+    return live
+
+
+def served_needles(directory: str, vid: int) -> dict:
+    """{needle id: (cookie, size, crc)} of what a backup copy serves:
+    the copy mounted as a volume, every needle its .idx names read."""
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    v = Volume(directory, "", vid, create=False, use_worker=False)
+    try:
+        keys: list = []
+        v.nm.ascending_visit(lambda e: keys.append(e.key)
+                             if e.size > 0 else None)
+        out = {}
+        for k in keys:
+            n = v.read_needle(k)
+            out[k] = (n.cookie, n.size, n.checksum)
+        return out
+    finally:
+        v.close()
+
+
+def first_difference(a: str, b: str) -> int | None:
+    """The first byte offset where two files differ (the shorter one's
+    length if one is a prefix of the other), None if they are equal."""
+    block = 1 << 20
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        off = 0
+        while True:
+            x, y = fa.read(block), fb.read(block)
+            if x != y:
+                n = min(len(x), len(y))
+                i = next((i for i in range(n) if x[i] != y[i]), n)
+                return off + i
+            if not x:
+                return None
+            off += len(x)
+
+
+def crc_map(murl: str, fids, workers: int = 8) -> dict:
+    """`volume.fsck -crc -json`'s node-address-free `volumes` map (vid ->
+    fid -> sorted distinct replica CRCs) for the file ids written, from
+    the same HEAD X-Needle-Checksum on every replica the master names."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.shell import CommandEnv
+    from seaweedfs_tpu_torch.shell.command_volume import VolumeFsck
+    env = CommandEnv(murl, device="cpu")
+    try:
+        locs = {v: env.volume_locations(v)
+                for v in {int(f.split(",")[0]) for f in fids}}
+    finally:
+        env.close()
+
+    def one(fid):
+        vid = int(fid.split(",")[0])
+        return vid, fid, sorted({VolumeFsck._head_checksum(u, fid)
+                                 for u in locs[vid]})
+
+    vols: dict = {}
+    with ThreadPoolExecutor(workers) as pool:
+        for vid, fid, crcs in pool.map(one, sorted(fids)):
+            vols.setdefault(str(vid), {})[fid] = crcs
+    return {v: dict(sorted(f.items())) for v, f in sorted(vols.items())}
+
+
+def ecc_union(dirs: dict, vid: int) -> dict:
+    """{shard id: entry} over every `.ecc` of `vid` in `dirs`; a shard
+    with two different entries fails."""
+    import glob
+    out: dict = {}
+    for d in dirs.values():
+        for path in glob.glob(os.path.join(d, f"*{vid}.ecc")):
+            if os.path.basename(path)[:-4].split("_")[-1] != str(vid):
+                continue
+            for sid, entry_ in ecc_entries(path).items():
+                check(out.get(sid, entry_) == entry_,
+                      f"volume {vid} shard {sid}: two .ecc entries")
+                out[sid] = entry_
+    return out
+
+
+def hash_shards(files: dict) -> dict:
+    """{shard id: sha256} of shard_files()' paths, hashed in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        got = pool.map(lambda kv: (kv[0], sha256_file(kv[1][1])),
+                       files.items())
+        return dict(got)
+
+
+def bench_report(text: str) -> dict:
+    """`weed benchmark`'s write and read blocks as numbers."""
+    out: dict = {}
+    title = None
+    for line in text.splitlines():
+        if line.startswith("--- "):
+            title = "write" if line[4:].startswith("write") else "read"
+            out[title] = {}
+        elif title and line.startswith("requests"):
+            parts = line.split()
+            out[title]["requests"] = int(parts[1])
+            out[title]["errors"] = int(parts[3].rstrip(")"))
+        elif title and line.startswith("throughput"):
+            out[title]["req_per_s"] = float(line.split()[1])
+        elif title and line.startswith("latency ms"):
+            w = line.split()
+            out[title]["latency_ms"] = {w[i]: float(w[i + 1])
+                                        for i in range(2, len(w) - 1, 2)}
+    return out
+
+
+def phase_ha_cluster(torch, dev, args) -> dict:
+    """Phase 11: a primary of three raft masters (-peers, -repair) and
+    HA_NODES volume servers mirroring into a standby cluster, every role
+    a `python -m seaweedfs_tpu_torch` process on the card's host.  The
+    raft leader is killed while a collection's volume fills; `weed
+    backup` copies it (full, then incremental) and `weed fix`/`export`
+    read the copy; the standby converges to the same CRC map; both
+    clusters `ec.encode` the volume (K2 in each holder); a holder is
+    killed, 300 degraded reads run (K1 in the survivors) and the new
+    leader's repair daemon rebuilds the lost shards (K2 in the leader);
+    every needle reads back; the shell's cluster verbs run on the
+    leader, and `weed benchmark` against it."""
+    from seaweedfs_tpu_torch.cluster import resilience, rpc
+    from seaweedfs_tpu_torch.cluster.client import WeedClient
+    from seaweedfs_tpu_torch.core import types as t
+    from seaweedfs_tpu_torch.ec.encoder import (write_ec_files,
+                                                write_sorted_file_from_idx)
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+
+    t_phase = time.perf_counter()
+    limit_mb = args.ha_mib
+    limit = limit_mb * MIB
+    work = os.path.join(REPO, "_smoke_work", "ha")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    launch = port_launch(dev)
+    dev_flag = f"-device={dev.type}"
+    procs: list = []
+    extras: list = []  # processes that end on their own
+    envs: list = []
+    # The filler is a change to the layout, not a cut of scale: the
+    # failover's client errors count the writers' 406s while no slot is
+    # free, and depend on it.
+    out: dict = {"reduced": {"volume_size_limit_mb": [30000, limit_mb],
+                             "hosts": [HA_MASTERS + HA_NODES + 1
+                                       + HA_STANDBY_NODES, 1],
+                             "benchmark_n": [1048576, HA_BENCH_N],
+                             "free_slots_during_write": [
+                                 HA_NODES * HA_MAX_VOLUMES - 1, 0]},
+                 "walls_s": {}, "gb_s": {}, "launches": {}, "rss_mib": {}}
+
+    def start(args_, name):
+        p = port_process(args_, os.path.join(work, f"{name}.log"), launch)
+        procs.append(p)
+        return p
+
+    def env_for(murl):
+        e = CommandEnv(murl, device=dev)
+        envs.append(e)
+        return e
+
+    try:
+        # -- the standby: one master and two volume servers ---------------
+        sport = rpc.free_port()
+        surl = f"http://127.0.0.1:{sport}"
+        sb_master = start(["master", f"-port={sport}",
+                           f"-mdir={work}/standby",
+                           f"-volumeSizeLimitMB={limit_mb}",
+                           f"-defaultReplication={HA_REPLICATION}"],
+                          "standby")
+        sb_dirs: dict = {}
+        sb_procs: dict = {}
+        for i in range(HA_STANDBY_NODES):
+            port = rpc.free_port()
+            node = f"127.0.0.1:{port}"
+            sb_dirs[node] = os.path.join(work, f"sb{i}")
+            os.makedirs(sb_dirs[node])
+            sb_procs[node] = start(
+                ["volume", dev_flag, f"-port={port}", f"-dir={sb_dirs[node]}",
+                 f"-max={HA_MAX_VOLUMES}", f"-mserver=127.0.0.1:{sport}"],
+                f"sb{i}")
+        # -- the primary: three raft masters, HA_NODES volume servers -----
+        mports = [rpc.free_port() for _ in range(HA_MASTERS)]
+        murls = [f"http://127.0.0.1:{p}" for p in mports]
+        peers = ",".join(f"127.0.0.1:{p}" for p in mports)
+        m_procs: dict = {}
+        for i, port in enumerate(mports):
+            m_procs[murls[i]] = start(
+                ["master", f"-port={port}", f"-mdir={work}/m{i}",
+                 f"-peers={peers}", f"-volumeSizeLimitMB={limit_mb}",
+                 f"-defaultReplication={HA_REPLICATION}", "-repair",
+                 f"-repair.delay={HA_REPAIR_DELAY_S}"], f"m{i}")
+        dirs: dict = {}
+        vs_procs: dict = {}
+        for i in range(HA_NODES):
+            port = rpc.free_port()
+            node = f"127.0.0.1:{port}"
+            dirs[node] = os.path.join(work, f"vs{i}")
+            os.makedirs(dirs[node])
+            vs_procs[node] = start(
+                ["volume", dev_flag, f"-port={port}", f"-dir={dirs[node]}",
+                 f"-max={HA_MAX_VOLUMES}", "-dataCenter=dc1",
+                 f"-rack=rack{i * HA_RACKS // HA_NODES}",
+                 f"-mserver={peers}", f"-replicate.peer=127.0.0.1:{sport}"],
+                f"vs{i}")
+        leader = wait_for(lambda: the_leader(murls), "a raft leader", procs)
+        term_start = master_roles([leader])[leader]["raft"]["term"]
+        wait_for(lambda: len(rpc.call_status(
+            leader + "/cluster/healthz", timeout=2.0)[1]["nodes"])
+            == HA_NODES, f"{HA_NODES} volume servers at the leader", procs)
+        wait_for(lambda: len(rpc.call_status(
+            surl + "/cluster/healthz", timeout=2.0)[1]["nodes"])
+            == HA_STANDBY_NODES, "the standby's volume servers", procs)
+        out["startup_s"] = time.perf_counter() - t_phase
+        vs_nodes = list(vs_procs)
+        sb_nodes = list(sb_procs)
+
+        # -- write with a leader kill ---------------------------------------
+        rpc.call(f"{leader}/vol/grow?count=1&collection={HA_COLLECTION}",
+                 "POST")
+        client = WeedClient(list(murls))
+        probe = client.assign(collection=HA_COLLECTION)
+        vid = int(probe["fid"].split(",")[0])
+        holder = probe["url"]
+        # The shipper enables a volume's change log on its next tick: no
+        # write may land before it (it would have nothing to ship).
+        wait_for(lambda: str(vid) in (rpc.call(
+            f"http://{holder}/debug/replication", timeout=2.0).get("rlog")
+            or {}), "the volume's change log", procs)
+        # Every other slot holds an empty volume of another collection
+        # while the volume fills: a leader elected before the volume
+        # servers' next beats knows no volume of the collection (as
+        # upstream's does), and with no slot free it cannot grow one
+        # elsewhere, so the writers wait out the failover (406, retried)
+        # and every write lands in the one volume.
+        slots = HA_NODES * HA_MAX_VOLUMES - 1
+        filled = rpc.call(f"{leader}/vol/grow?count={slots}"
+                          f"&collection={HA_FILLER}", "POST")["count"]
+        check(filled == slots, f"filled {filled} of {slots} free slots")
+        rows0 = node_device_rows(leader, vs_nodes, 0.0, procs)
+        blob, sizes = live_needles(args.seed + 11, LIVE_BLOB_MIB * MIB)
+        fids: dict = {}  # fid -> (offset, size)
+        lock = threading.Lock()
+        stop = threading.Event()
+        target = [0]  # bytes acked into `vid`
+        failures: list = []
+        client_errors: list = []
+        retries0 = sum(resilience.rpc_retries_total.value(reason=r)
+                       for r in ("connect", "shed", "status", "io"))
+
+        def writer():
+            while not stop.is_set():
+                with lock:
+                    off, size = next(sizes)
+                deadline = time.monotonic() + 120
+                while True:
+                    try:
+                        fid = client.upload_data(bytes(blob[off:off + size]),
+                                                 collection=HA_COLLECTION)
+                        break
+                    except Exception as e:  # noqa: BLE001 — retried
+                        client_errors.append(repr(e))
+                        if stop.is_set():
+                            return  # never acked: nothing to keep
+                        if time.monotonic() > deadline:
+                            failures.append(repr(e))
+                            stop.set()
+                            return
+                        time.sleep(0.05)
+                with lock:
+                    if fid in fids:
+                        failures.append(f"file id {fid} issued twice")
+                        stop.set()
+                        return
+                    fids[fid] = (off, size)
+                    if int(fid.split(",")[0]) == vid:
+                        target[0] += size
+
+        # `weed backup` comes up first and waits for the write to reach
+        # the backup mark: a process takes seconds to come up, and the
+        # writes last only a few.
+        bdir = os.path.join(work, "backup")
+        trigger = os.path.join(work, "backup.go")
+        backup_log = os.path.join(work, "backup_full.log")
+        backup_full = port_process(
+            [trigger, "backup", f"-master={leader}", f"-volumeId={vid}",
+             f"-dir={bdir}"], backup_log, port_launch(dev, HELD))
+        extras.append(backup_full)
+        wait_for(lambda: os.path.exists(trigger + ".ready"),
+                 "the backup process", procs + extras)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=writer) for _ in range(HA_WRITERS)]
+        for th in threads:
+            th.start()
+        try:
+            wait_for(lambda: stop.is_set() or target[0]
+                     >= limit * HA_BACKUP_PERCENT / 100,
+                     "the write to reach the backup mark", procs, timeout=600)
+            # A leader elected under the write load answers lookups only
+            # after the volume servers' next beats: start the backup
+            # once its master answers the volume's.
+            wait_for(lambda: rpc.call_status(
+                f"{leader}/dir/lookup?volumeId={vid}", timeout=2.0)[0]
+                == 200, "a lookup of the volume", procs)
+            with open(trigger, "w"):
+                pass
+            # Its lookup is done once it fetches the .idx: only then may
+            # the master it asked die.
+            wait_for(lambda: os.path.exists(os.path.join(bdir, f"{vid}.idx"))
+                     or backup_full.poll() is not None,
+                     "the full backup's start", procs)
+            wait_for(lambda: stop.is_set() or target[0]
+                     >= limit * HA_KILL_PERCENT / 100,
+                     "the write to reach the kill mark", procs, timeout=600)
+            # The leader of the newest term: a leadership change under
+            # the write load leaves a deposed leader believing it leads
+            # until it hears the newer term.
+            claims = [(st["raft"]["term"], u)
+                      for u, st in master_roles(murls).items()
+                      if st.get("is_leader")]
+            check(claims, "no master claims to lead at the kill mark")
+            term_at_kill, old_leader = max(claims)
+            t_kill = time.perf_counter()
+            out["rss_mib"][f"master {old_leader} (killed leader)"] = \
+                rss_mib(m_procs[old_leader].pid)
+            m_procs[old_leader].kill()
+            m_procs[old_leader].wait(30)
+            procs.remove(m_procs[old_leader])
+            survivors = [u for u in murls if u != old_leader]
+            leader = wait_for(lambda: the_leader(survivors),
+                              "a new raft leader", procs, timeout=60)
+            out["new_leader_s"] = time.perf_counter() - t_kill
+            out["raft_terms"] = {
+                "startup": term_start, "at_kill": term_at_kill,
+                "new_leader": master_roles([leader])[leader]["raft"]["term"]}
+            log(f"ha: leader {old_leader} killed; {leader} leads after "
+                f"{out['new_leader_s']:.3f} s")
+            wait_for(lambda: stop.is_set() or target[0]
+                     >= limit * HA_FULL_PERCENT / 100,
+                     "the write to fill the volume", procs, timeout=600)
+        finally:
+            stop.set()
+            for th in threads:
+                th.join()
+        t_last_write = time.perf_counter()
+        wall = t_last_write - t0
+
+        # The mirror drains while the backups run: time it from here.
+        def drained():
+            pending = 0
+            for n in vs_nodes:
+                doc = rpc.call(f"http://{n}/debug/replication", timeout=5.0)
+                pending += sum(st["pending"]
+                               for st in (doc.get("rlog") or {}).values())
+            return pending == 0
+
+        converged: list = []
+
+        def watch_drain():
+            deadline = time.monotonic() + 600
+            while time.monotonic() < deadline:
+                try:
+                    if drained():
+                        converged.append(time.perf_counter() - t_last_write)
+                        return
+                except (OSError, rpc.RpcError):
+                    pass
+                except Exception as e:  # noqa: BLE001 — reported below
+                    converged.append(repr(e))
+                    return
+                time.sleep(0.05)
+
+        drain_watch = threading.Thread(target=watch_drain, daemon=True)
+        drain_watch.start()
+        check(not failures, f"writes failed past their deadline: "
+                            f"{failures[:3]}")
+        retries = sum(resilience.rpc_retries_total.value(reason=r)
+                      for r in ("connect", "shed", "status", "io")) - retries0
+        keys = [t.parse_file_id(f)[1:] for f in fids]
+        check(len(set(keys)) == len(keys), "a needle key was issued twice")
+        written = sum(s for _o, s in fids.values())
+        out["walls_s"]["write"] = wall
+        out["gb_s"]["write"] = written / wall / 1e9
+        out["write"] = {"needles": len(fids), "bytes": written,
+                        "volume": vid, "volume_bytes": target[0],
+                        "volumes": len({f.split(",")[0] for f in fids}),
+                        "client_errors_retried": len(client_errors),
+                        "client_rpc_retries": retries,
+                        "acked_lost": None, "fids_unique": True}
+        log(f"ha: wrote {len(fids)} needles, {written / MIB:.0f} MiB in "
+            f"{wall:.2f} s; {len(client_errors)} client errors retried, "
+            f"{retries:.0f} rpc retries")
+
+        # The new leader learns each node's volumes from its next full
+        # beat after the failover; then the slots are freed.
+        wait_for(lambda: len(rpc.call_status(
+            leader + "/cluster/healthz", timeout=2.0)[1]["nodes"])
+            == HA_NODES and rpc.call_status(
+            f"{leader}/dir/lookup?volumeId={vid}", timeout=2.0)[0] == 200,
+            "every volume server at the new leader", procs)
+        freed = rpc.call(f"{leader}/col/delete?collection={HA_FILLER}",
+                         "POST")["deleted_replicas"]
+        check(freed == filled, f"freed {freed} of {filled} filler volumes")
+
+        # -- weed backup: full (taken during the writes), incremental ----
+        backup_full.wait(600)
+        with open(backup_log) as f:
+            text = f.read()
+        check(backup_full.returncode == 0 and "full backup" in text,
+              f"full backup exited {backup_full.returncode}: "
+              f"{text[-2000:]}")
+        full_bytes = os.path.getsize(os.path.join(bdir, f"{vid}.dat"))
+        backup_argv = ["backup", f"-master={leader}", f"-volumeId={vid}",
+                       f"-dir={bdir}"]
+        text, wall, _rss = run_port(backup_argv, os.path.join(
+            work, "backup_incr.log"), launch, procs)
+        check("incremental backup" in text, f"incremental backup: {text}")
+        out["walls_s"]["backup_incremental"] = wall
+        out["backup"] = {"full_dat_bytes": full_bytes,
+                         "incremental": text.strip().splitlines()[-1]}
+        # The primary's volume as it stands after the last write.
+        base = os.path.join(work, "ref", f"{HA_COLLECTION}_{vid}")
+        os.makedirs(os.path.dirname(base))
+        for ext in (".dat", ".idx"):
+            rpc.call_to_file(f"http://{holder}/admin/volume_file?"
+                             f"volume={vid}&ext={ext}", base + ext)
+        primary_set = needle_set(base + ".dat")
+        want_ids = {t.parse_file_id(f)[1] for f in fids
+                    if int(f.split(",")[0]) == vid}
+        check(set(primary_set) == want_ids,
+              "the primary's needles are not the acked writes")
+        # Records appended between the full copy's .idx and .dat are
+        # served only after `fix` (a reference fault, ROADMAP queue 3).
+        served = served_needles(bdir, vid)
+        check(all(primary_set.get(k) == v for k, v in served.items()),
+              "the backup's index serves a needle the primary lacks")
+        text, wall, _rss = run_port(
+            ["fix", f"-dir={bdir}", f"-volumeId={vid}"],
+            os.path.join(work, "fix.log"), launch, procs)
+        out["walls_s"]["fix"] = wall
+        out["backup"]["fix"] = text.strip().splitlines()[-1]
+        fixed = served_needles(bdir, vid)
+        text, wall, _rss = run_port(
+            ["export", f"-dir={bdir}", f"-volumeId={vid}"],
+            os.path.join(work, "export.log"), launch, procs)
+        out["walls_s"]["export"] = wall
+        listed = sum(1 for ln in text.splitlines() if "\toffset=" in ln)
+        scanned = needle_set(os.path.join(bdir, f"{vid}.dat"))
+        out["backup"].update({"needles": len(fixed),
+                              "equal_to_primary": fixed == primary_set,
+                              "served_before_fix": len(served),
+                              "export_listed": listed})
+        check(fixed == primary_set,
+              f"after fix the backup serves {len(fixed)} needles, "
+              f"{len(set(primary_set) - set(fixed))} of the primary's "
+              f"{len(primary_set)} missing or different")
+        check(scanned == primary_set and listed == len(scanned),
+              f"export listed {listed} and a scan found {len(scanned)} "
+              f"of the primary's {len(primary_set)} needles")
+
+        # -- the mirror converges -----------------------------------------
+        drain_watch.join(600)
+        check(converged and isinstance(converged[0], float),
+              f"the shippers never drained: {converged}")
+        out["mirror_converged_s"] = converged[0]
+        env = env_for(leader)
+        status = wait_for(lambda: (lambda s: s if "CAUGHT UP" in s
+                                   else None)(run_command(
+                                       env, "cluster.mirror.status")),
+                          "cluster.mirror.status CAUGHT UP", procs)
+        out["mirror_status_head"] = status.splitlines()[0]
+        vid_fids = sorted(f for f in fids if int(f.split(",")[0]) == vid)
+        t0 = time.perf_counter()
+        pr_map = crc_map(leader, vid_fids)
+        sb_map = crc_map(surl, vid_fids)
+        check(pr_map == sb_map, "the standby's CRC map differs from the "
+                                "primary's")
+        check(all(len(c) == 1 and c[0] for c in pr_map[str(vid)].values()),
+              "a needle without one CRC")
+        out["walls_s"]["crc_maps"] = time.perf_counter() - t0
+        out["crc_map_needles"] = len(pr_map[str(vid)])
+        sb_holder = env_for(surl).volume_locations(vid)
+        check(len(sb_holder) == 1, f"standby holders of {vid}: {sb_holder}")
+        sb_holder = sb_holder[0]
+        sb_dat = os.path.join(sb_dirs[sb_holder], f"{HA_COLLECTION}_{vid}.dat")
+        pr_dat = os.path.join(dirs[holder], f"{HA_COLLECTION}_{vid}.dat")
+        diff = first_difference(pr_dat, sb_dat)
+        out["dat_identical"] = diff is None
+        if diff is not None:
+            out["dat_first_difference"] = {
+                "offset": diff, "primary_bytes": os.path.getsize(pr_dat),
+                "standby_bytes": os.path.getsize(sb_dat)}
+        log(f"ha: mirror converged {out['mirror_converged_s']:.2f} s after "
+            f"the last write; .dat identical: {diff is None}")
+
+        # -- the card's encode of the same .dat here -----------------------
+        write_sorted_file_from_idx(base)
+        reset_counts()
+        write_ec_files(base, device=dev)
+        ref_counts = read_counts()
+        ref_k = {k: c["launches"] for k, c in ref_counts.items()}
+        check(ref_k["rs_bitmatrix_crc"] > 0, f"reference encode {ref_k}")
+        ref_sha = {s: sha256_file(f"{base}.ec{s:02d}") for s in range(14)}
+        ref_ecc = ecc_entries(base + ".ecc")
+        shard_size = os.path.getsize(base + ".ec00")
+        for path in [base + ".dat"] + [f"{base}.ec{s:02d}"
+                                       for s in range(1, 14)]:
+            os.remove(path)
+
+        # -- ec.encode on both clusters: K2 in each holder -----------------
+        encodes = {}
+        for side, murl, nodes, ddirs in (("primary", leader, vs_nodes, dirs),
+                                         ("standby", surl, sb_nodes,
+                                          sb_dirs)):
+            before = node_device_rows(murl, nodes, time.time(), procs)
+            if side == "primary":
+                idle = rows_delta(rows0, before)
+                check(not idle, f"volume servers launched during the write,"
+                                f" backup or mirror: {idle}")
+            text, wall, rss = run_port(
+                ["shell", dev_flag, f"-master={murl.split('//')[1]}", "lock",
+                 f"ec.encode -volumeId {vid}"],
+                os.path.join(work, f"encode_{side}.log"), launch, procs)
+            check(f"volume {vid} -> ec shards" in text,
+                  f"{side} ec.encode: {text[-2000:]}")
+            after = node_device_rows(murl, nodes, time.time(), procs)
+            step = rows_delta(before, after)
+            check(set(step) <= {"encode_crc_kernel", "encode_kernel"}
+                  and vs_kernel_launches(step) == ref_k,
+                  f"{side} ec.encode rows {step}, expected {ref_k} "
+                  f"(write_ec_files of the same .dat here)")
+            files = shard_files(ddirs, vid)
+            check(sorted(files) == list(range(14)),
+                  f"{side} volume {vid} shards: {sorted(files)}")
+            sha = hash_shards(files)
+            ecc = ecc_union(ddirs, vid)
+            check(all(ecc[s] == ref_ecc[s] for s in ecc),
+                  f"{side}: an .ecc entry differs from the card's encode")
+            encodes[side] = {"sha": sha, "ecc": ecc, "files": files}
+            out["walls_s"][f"encode_{side}"] = wall
+            out["gb_s"][f"encode_{side}"] = target[0] / wall / 1e9
+            out["launches"][f"encode_{side}"] = {
+                "volume_servers": vs_kernel_launches(step)}
+            out["rss_mib"][f"shell encode {side} (sampled)"] = rss
+        pr_sha, sb_sha = encodes["primary"]["sha"], encodes["standby"]["sha"]
+        out["shards_identical_across_clusters"] = pr_sha == sb_sha
+        out["shards_equal_to_card_encode"] = {
+            side: encodes[side]["sha"] == ref_sha for side in encodes}
+        # A shard copied by the per-volume flow has no .ecc entry until
+        # its first scrub, and the two clusters copy different shards.
+        pr_ecc, sb_ecc = encodes["primary"]["ecc"], encodes["standby"]["ecc"]
+        out["ecc_entries"] = {
+            "primary": len(pr_ecc), "standby": len(sb_ecc),
+            "equal_where_both": all(pr_ecc[s] == sb_ecc[s]
+                                    for s in set(pr_ecc) & set(sb_ecc))}
+        check(pr_sha == ref_sha, "the primary's shards differ from the "
+                                 "card's encode of its .dat")
+        check((pr_sha == sb_sha) == (diff is None),
+              "shards and .dat disagree on whether the clusters differ")
+        log(f"ha: shards identical across clusters: {pr_sha == sb_sha}")
+
+        # -- a holder dies: degraded reads, the autopilot's repair --------
+        holders = {s: n for s, (n, _p) in encodes["primary"]["files"].items()}
+        counts = {n: sorted(s for s, h in holders.items() if h == n)
+                  for n in vs_nodes}
+        # Placement 000 keeps one copy: a node holding another volume
+        # with acked writes is not one to lose.
+        env = env_for(leader)
+        others = {int(f.split(",")[0]) for f in fids} - {vid}
+        busy = {u for v in others for u in env.volume_locations(v)}
+        candidates = [n for n in vs_nodes
+                      if 1 <= len(counts[n]) <= 4 and n not in busy]
+        check(candidates, f"no node holds 1-4 shards of {vid} and no other "
+                          f"written volume: {counts}, {sorted(busy)}")
+        victim = max(candidates, key=lambda n: len(counts[n]))
+        lost = counts[victim]
+        out["killed_node"] = {"node": victim, "shards": lost}
+        # A locating copy: the .ecx, .vif and one shard's size.
+        loc_base = os.path.join(work, "locate", f"{HA_COLLECTION}_{vid}")
+        os.makedirs(os.path.dirname(loc_base))
+        some = encodes["primary"]["files"][lost[0]][1][:-5]
+        for ext in (".ecx", ".vif"):
+            shutil.copyfile(some + ext, loc_base + ext)
+        os.symlink(encodes["primary"]["files"][0][1], loc_base + ".ec00")
+        out["repair_status_before"] = run_command(env, "cluster.repair status")
+        live = [n for n in vs_nodes if n != victim]
+        rows_kill = node_device_rows(leader, vs_nodes, time.time(), procs)
+        leader_rows0 = leader_device_rows(leader)
+        out["rss_mib"][f"volume {victim} (killed)"] = \
+            rss_mib(vs_procs[victim].pid)
+        t_kill = time.perf_counter()
+        vs_procs[victim].kill()
+        vs_procs[victim].wait(30)
+        procs.remove(vs_procs[victim])
+        rng = np.random.default_rng(args.seed + 12)
+        sample = [vid_fids[i] for i in rng.choice(
+            len(vid_fids), min(HA_READS, len(vid_fids)), replace=False)]
+        ev = EcVolume(loc_base, vid=vid, device=dev)
+        expect_k1 = 0
+        for fid in sample:
+            _o, _s, intervals = ev.locate_needle(t.parse_file_id(fid)[1])
+            expect_k1 += sum(iv.to_shard_id_and_offset(
+                ev.large_block_size, ev.small_block_size)[0] in lost
+                for iv in intervals)
+        ev.close()
+        reader = WeedClient(survivors)
+        lat = []
+        for fid in sample:
+            off, size = fids[fid]
+            t0 = time.perf_counter()
+            data = reader.download(fid)
+            lat.append(time.perf_counter() - t0)
+            check(data == blob[off:off + size], f"degraded read {fid} wrong")
+        out["degraded_read_ms"] = {"p50": pct_ms(lat, 50),
+                                   "p99": pct_ms(lat, 99), "reads": len(lat),
+                                   "intervals_reconstructed": expect_k1}
+        out["walls_s"]["degraded_reads"] = sum(lat)
+        rows_reads = node_device_rows(leader, live, time.time(), procs)
+        step = rows_delta({n: rows_kill[n] for n in live}, rows_reads)
+        check(rows_delta(leader_rows0, leader_device_rows(leader)) == {},
+              "the repair launched before the degraded reads ended")
+        check(step == ({"reconstruct_kernel": expect_k1} if expect_k1
+                       else {}),
+              f"degraded reads launched {step}, the layout needs "
+              f"{expect_k1} K1 10->1")
+        check(expect_k1 > 0, "no sampled read crossed a lost shard")
+        out["launches"]["degraded_reads"] = {
+            "volume_servers": vs_kernel_launches(step)}
+
+        def repaired():
+            locs = env.ec_shard_locations(vid)
+            return sorted(s for s, us in locs.items()
+                          if any(u in live for u in us)) == list(range(14))
+        wait_for(repaired, "the autopilot's EC rebuild", procs, timeout=600)
+        out["repair_s_from_kill"] = time.perf_counter() - t_kill
+        out["repair_status_after"] = run_command(env, "cluster.repair status")
+        files = shard_files({n: dirs[n] for n in live}, vid)
+        check(sorted(files) == list(range(14)),
+              f"volume {vid} after the repair: {sorted(files)}")
+        for sid in lost:
+            check(sha256_file(files[sid][1]) == ref_sha[sid],
+                  f"rebuilt shard {vid}.{sid} differs from its original")
+        step = rows_delta(leader_rows0, leader_device_rows(leader))
+        want = rebuild_launches({vid: lost}, {vid: shard_size})
+        check(set(step) <= {"batch_reconstruct"}
+              and step.get("batch_reconstruct", 0) == want,
+              f"the leader's repair launched {step}, expected {want} "
+              f"batched K2 rebuild steps")
+        rows_repair = node_device_rows(leader, live, time.time(), procs)
+        check(not rows_delta(rows_reads, rows_repair),
+              "volume servers launched during the repair")
+        out["launches"]["repair"] = {"leader_master": {
+            "rs_bitmatrix": 0, "rs_bitmatrix_crc": want}}
+        log(f"ha: repaired {lost} {out['repair_s_from_kill']:.2f} s "
+            f"after the kill")
+
+        # -- every needle back, byte for byte -----------------------------
+        wall = read_every_needle(survivors, fids, blob, HA_WRITERS)
+        out["write"]["acked_lost"] = 0
+        out["walls_s"]["read_back"] = wall
+        out["gb_s"]["read_back"] = written / wall / 1e9
+        rows_back = node_device_rows(leader, live, time.time(), procs)
+        out["launches"]["read_back"] = {
+            "volume_servers": vs_kernel_launches(rows_delta(rows_repair,
+                                                            rows_back))}
+
+        # -- the shell's cluster verbs on the leader ----------------------
+        verbs = {}
+        for line in ("cluster.check", "cluster.roofline", "cluster.flows",
+                     "events.ls"):
+            t0 = time.perf_counter()
+            text = run_command(env, line)
+            verbs[line] = {"s": time.perf_counter() - t0,
+                           "lines": len(text.splitlines()),
+                           "head": text.splitlines()[0] if text else ""}
+            check(text.strip(), f"{line} printed nothing")
+            if line == "cluster.roofline":
+                check(f"peaks[{dev.type}" in text,
+                      f"cluster.roofline peaks are not the card's: {text}")
+                # Rows ride each live node's beats: the encoding holder's
+                # K2 rows go with it if it was the node killed.
+                keys = ["reconstruct_kernel"] + (
+                    ["encode_crc_kernel"] if holder != victim else [])
+                for key in keys:
+                    check(key in text, f"cluster.roofline lacks {key}")
+        out["shell_verbs"] = verbs
+
+        # -- weed benchmark against the leader ----------------------------
+        text, wall, rss = run_port(
+            ["benchmark", f"-master={leader.split('//')[1]}",
+             f"-n={HA_BENCH_N}", f"-size={HA_BENCH_SIZE}",
+             f"-c={HA_BENCH_C}"], os.path.join(work, "benchmark.log"),
+            launch, procs, timeout=900)
+        bench = bench_report(text)
+        for side in ("write", "read"):
+            check(bench.get(side, {}).get("requests") == HA_BENCH_N
+                  and bench[side]["errors"] == 0,
+                  f"benchmark {side}: {bench.get(side)}")
+        out["benchmark"] = bench
+        out["walls_s"]["benchmark"] = wall
+        out["rss_mib"]["benchmark (sampled)"] = rss
+
+        # -- every process's memory, then the totals ----------------------
+        for u, p in m_procs.items():
+            if p.poll() is None:
+                out["rss_mib"][f"master {u}"] = rss_mib(p.pid)
+        out["rss_mib"][f"master {surl} (standby)"] = rss_mib(sb_master.pid)
+        for n in live:
+            out["rss_mib"][f"volume {n}"] = rss_mib(vs_procs[n].pid)
+        for n in sb_nodes:
+            out["rss_mib"][f"volume {n} (standby)"] = rss_mib(sb_procs[n].pid)
+        out["rss_mib"]["chip_smoke"] = rss_mib(os.getpid())
+        totals = {"rs_bitmatrix": 0, "rs_bitmatrix_crc": 0}
+        for s in out["launches"].values():
+            for side in s.values():
+                for k in totals:
+                    totals[k] += side.get(k, 0)
+        out["launch_totals"] = totals
+        check(out["launches"]["encode_primary"]["volume_servers"][
+            "rs_bitmatrix_crc"] > 0 and out["launches"]["encode_standby"][
+            "volume_servers"]["rs_bitmatrix_crc"] > 0,
+            "K2 did not launch in both clusters' holders")
+        check(totals["rs_bitmatrix"] > 0, "K1 did not launch")
+    finally:
+        for e in envs:
+            e.close()
+        for p in procs + extras:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs + extras:
+            try:
+                p.wait(15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"ha cluster: {json.dumps(out['walls_s'])}")
+    return out
+
+
+def leader_device_rows(murl: str) -> dict:
+    """The leader master's own ledger rows (its process runs the repair
+    daemon's batched rebuilds), as /cluster/device folds them in under
+    its own URL: {its url: {catalog key: count}}, as rows_delta reads
+    them."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    doc = rpc.call(murl + "/cluster/device", timeout=120.0)
+    node = doc["nodes"].get(doc["leader"])
+    return {doc["leader"]: device_counts(node) if node else {}}
 
 
 def entry(t, plain, lib, k_in, k_out, width, crc, volumes=1):
@@ -2945,6 +3848,8 @@ def main() -> int:
                     help="divide the batched path's volume sizes by this")
     ap.add_argument("--live-mib", type=int, default=LIVE_LIMIT_MB,
                     help="the live cluster's volume size limit, MiB")
+    ap.add_argument("--ha-mib", type=int, default=HA_LIMIT_MB,
+                    help="the HA cluster's volume size limit, MiB")
     args = ap.parse_args()
 
     import torch
@@ -2979,6 +3884,7 @@ def main() -> int:
         storage = phase_storage(torch, dev, args)
         cluster = phase_cluster(torch, dev, args)
         live = phase_live_cluster(torch, dev, args)
+        ha = phase_ha_cluster(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -2993,18 +3899,37 @@ def main() -> int:
         n = batch[step]["launches"]["rs_bitmatrix_crc"]["launches"]
         batch[step]["device_busy_share"] = \
             n * ms / 1e3 / batch[step]["wall_s"]
-    # The same for the storage path's K1/K2 steps, at their shapes: K2
-    # 10->4 and K1 10->4 at 4 MiB, K1 10->1 at 1 MiB.
-    k1 = timings["rs_bitmatrix"]
-    busy = {}
-    for step, fn, ms in (
-            ("storage_generate", "rs_bitmatrix_crc", k2["ms"]),
-            ("storage_ec_scrub", "rs_bitmatrix", k1["at_10_to_1_1mib"]["ms"]),
-            ("storage_rebuild", "rs_bitmatrix", k1["ms"])):
-        n = storage["launches"][step][fn]["launches"]
-        busy[step] = n * ms / 1e3 / storage["walls_s"][step]
-    storage["device_busy_share"] = busy
-    live["device_busy_share"] = live_busy_share(live, timings)
+    # The same for the storage path's, phase 10's and phase 11's kernel
+    # steps, at their shapes: K2 10->4 and K1 10->4 at 4 MiB, K1 10->1 at
+    # 1 MiB, K2's rebuild step.  The volume axis costs V times one
+    # volume, so a V = 2 encode step counts twice.
+    k1, k2 = "rs_bitmatrix", "rs_bitmatrix_crc"
+    at = storage["launches"]
+    storage["device_busy_share"] = busy_share(timings, storage["walls_s"], {
+        "storage_generate": (k2, at["storage_generate"][k2]["launches"], None),
+        "storage_ec_scrub": (k1, at["storage_ec_scrub"][k1]["launches"],
+                             "at_10_to_1_1mib"),
+        "storage_rebuild": (k1, at["storage_rebuild"][k1]["launches"], None)})
+    at = live["launches"]
+    shell = at["encode_batch"]["shell"]
+    live["device_busy_share"] = busy_share(timings, live["walls_s"], {
+        "encode_per_volume": (
+            k2, at["encode_per_volume"]["volume_servers"][k2], None),
+        "encode_batch": (k2, shell[k2] + shell["volume_axis"], None),
+        "degraded_reads": (k1, at["degraded_reads"]["volume_servers"][k1],
+                           "at_10_to_1_1mib"),
+        "rebuild_batch": (k2, at["rebuild_batch"]["shell"][k2],
+                          "at_rebuild")})
+    at = ha["launches"]
+    ha["device_busy_share"] = busy_share(
+        timings, {**ha["walls_s"], "repair": ha["repair_s_from_kill"]}, {
+            "encode_primary": (
+                k2, at["encode_primary"]["volume_servers"][k2], None),
+            "encode_standby": (
+                k2, at["encode_standby"]["volume_servers"][k2], None),
+            "degraded_reads": (k1, at["degraded_reads"]["volume_servers"][k1],
+                               "at_10_to_1_1mib"),
+            "repair": (k2, at["repair"]["leader_master"][k2], "at_rebuild")})
 
     kernels = [
         {"name": "rs_bitmatrix", "route": "cuda",
@@ -3016,7 +3941,8 @@ def main() -> int:
              storage["launches"][s]["rs_bitmatrix"]["launches"]
              for s in STORAGE_STEPS)
          + cluster["window_launches"]["rs_bitmatrix"]
-         + live["launch_totals"]["rs_bitmatrix"],
+         + live["launch_totals"]["rs_bitmatrix"]
+         + ha["launch_totals"]["rs_bitmatrix"],
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
@@ -3027,7 +3953,8 @@ def main() -> int:
              storage["launches"][s]["rs_bitmatrix_crc"]["launches"]
              for s in STORAGE_STEPS)
          + cluster["window_launches"]["rs_bitmatrix_crc"]
-         + live["launch_totals"]["rs_bitmatrix_crc"],
+         + live["launch_totals"]["rs_bitmatrix_crc"]
+         + ha["launch_totals"]["rs_bitmatrix_crc"],
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
     obs = phase_observability(torch, probe, main_path, batch, storage, timings)
@@ -3039,6 +3966,7 @@ def main() -> int:
     print(json.dumps({"observability": obs}))
     print(json.dumps({"control_plane": cluster}))
     print(json.dumps({"live_cluster": live}))
+    print(json.dumps({"ha_cluster": ha}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """`python -m seaweedfs_tpu_torch <command>` — the port's `weed` binary
 (reference: weed/weed.go:38-80).  It has `master`, `volume`,
-`server`, `shell`, `upload`, `download` and `version`."""
+`server`, `shell`, `upload`, `download`, `backup`, `fix`, `compact`,
+`export`, `benchmark` and `version`."""
 
 import sys
 

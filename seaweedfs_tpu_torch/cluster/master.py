@@ -12,9 +12,6 @@ HTTP surface mirrors the reference master's API
   POST /vol/vacuum           force a vacuum scan
   GET  /col/list, POST /col/delete
   GET  /cluster/status
-
-Not ported yet (ROADMAP queue 1, slice 8c): multi-master raft
-(`peers`); asking for it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -97,12 +94,6 @@ class MasterServer:
                  repair_enabled: bool = False,
                  repair_delay: float | None = None,
                  repair_concurrent: int = 2):
-        # Not ported yet (ROADMAP queue 1, slice 8c): refuse before any
-        # socket is bound rather than run without the feature.
-        if peers:
-            raise NotImplementedError(
-                "multi-master raft (-peers) is not ported yet "
-                "(ROADMAP queue 1, slice 8c)")
         # Write-path JWT (security/jwt.go): when configured, Assign
         # responses carry an `auth` token volume servers require on
         # needle writes/deletes.
@@ -353,16 +344,118 @@ class MasterServer:
         self.repair = RepairDaemon(self, enabled=repair_enabled,
                                    delay=repair_delay,
                                    concurrent=repair_concurrent)
-        # Multi-master HA (server/raft_server.go): the raft plane is
-        # not ported yet, so this master is always its own leader.
+        # Multi-master HA: a raft node rides on this HTTP server; the
+        # leader owns id issuance, followers proxy mutating requests
+        # (server/raft_server.go, master_server.go:155).
         self.raft = None
+        self._seq_ceiling = 0  # raft-committed file-id ceiling
         self._raft_id = f"http://{self.server.host}:{self.server.port}"
+        self._id_lock = threading.Lock()
+        if peers:
+            from .raft import RaftNode
+            norm = [p if p.startswith("http") else f"http://{p}"
+                    for p in peers]
+            # Raft identities are scheme-normalized http:// addresses
+            # regardless of TLS: -peers lists are written as host:port,
+            # and whether the wire is encrypted is the transport's
+            # decision (rpc.set_client_ssl_context force_https), not
+            # part of a node's identity.
+            me = self._raft_id
+            if me not in norm:
+                # A textual alias of this node left in the peer list
+                # would grant phantom self-votes (split brain) and
+                # self-deposing heartbeats — refuse instead of guessing.
+                raise ValueError(
+                    f"-peers must include this master's advertised "
+                    f"address {me} (got {norm}); set -ip/-port to match")
+            self.raft = RaftNode(
+                me, norm, apply_fn=self._raft_apply,
+                snapshot_fn=self._raft_snapshot,
+                restore_fn=self._raft_restore,
+                state_path=f"{meta_dir}/raft.json" if meta_dir else None)
+            self.raft.mount(self.server)
+            self.topo.next_volume_id_hook = self._next_volume_id_raft
+            # HA file-id issuance: swap in the consensus-backed block
+            # sequencer (the etcd-sequencer analog) so a failover can
+            # never re-issue a committed id range.
+            from ..topology.sequence import RaftSequencer
+            self.topo.sequencer = RaftSequencer(self._alloc_seq_block)
+
+    # -- raft ----------------------------------------------------------------
+
+    def _raft_apply(self, cmd: dict) -> None:
+        if cmd.get("op") == "max_volume_id":
+            self.topo.set_max_volume_id(cmd["value"])
+        elif cmd.get("op") == "seq_ceiling":
+            self._seq_ceiling = max(self._seq_ceiling, cmd["value"])
+
+    def _alloc_seq_block(self, min_start: int, n: int) -> int:
+        """Commit a file-id block [start, start+n) through the raft log
+        (RaftSequencer's alloc_fn).  Same fencing discipline as volume
+        ids: barrier first so a fresh leader sees every inherited
+        ceiling before computing the next one."""
+        from .raft import NotLeader
+        with self._id_lock:
+            if not self.raft.is_leader():
+                raise NotLeader(self.raft.leader())
+            self.raft.barrier()
+            start = max(self._seq_ceiling, min_start)
+            self.raft.propose({"op": "seq_ceiling", "value": start + n})
+            return start
+
+    def _raft_snapshot(self) -> dict:
+        """State-machine snapshot for raft log compaction: the
+        replicated state is the two id watermarks."""
+        with self.topo._lock:
+            return {"max_volume_id": max(self.topo._max_volume_id,
+                                         self.topo.max_volume_id),
+                    "seq_ceiling": self._seq_ceiling}
+
+    def _raft_restore(self, state: dict) -> None:
+        if state.get("max_volume_id"):
+            self.topo.set_max_volume_id(state["max_volume_id"])
+        if state.get("seq_ceiling"):
+            self._seq_ceiling = max(self._seq_ceiling,
+                                    state["seq_ceiling"])
 
     def _raft_membership(self, query: dict, body: bytes) -> dict:
-        """POST /cluster/raft/{add,remove}?peer=host:port — membership
-        changes need the raft plane; without it the reference answers
-        400 too."""
-        raise rpc.RpcError(400, "raft is not enabled (-peers)")
+        """POST /cluster/raft/{add,remove}?peer=host:port — one-server-
+        at-a-time membership change on the leader."""
+        if self.raft is None:
+            raise rpc.RpcError(400, "raft is not enabled (-peers)")
+        peer = query.get("peer", "")
+        if not peer:
+            raise rpc.RpcError(400, "missing ?peer=host:port")
+        if not peer.startswith("http"):
+            peer = f"http://{peer}"
+        from .raft import NotLeader
+        try:
+            if query.get("_action") == "remove":
+                self.raft.remove_server(peer)
+            else:
+                self.raft.add_server(peer)
+        except NotLeader as e:
+            raise rpc.RpcError(
+                503, f"not the leader (leader={e.leader})") from None
+        except (RuntimeError, ValueError) as e:
+            raise rpc.RpcError(409, str(e)) from None
+        return {"peers": sorted(self.raft.peers + [self.raft.id])}
+
+    def _next_volume_id_raft(self) -> int:
+        from .raft import NotLeader
+        with self._id_lock:
+            if not self.raft.is_leader():
+                raise NotLeader(self.raft.leader())
+            # Read-your-own-log fence: a freshly elected leader must
+            # apply inherited entries before computing the next id, or
+            # it could re-issue the previous leader's last volume id.
+            self.raft.barrier()
+            with self.topo._lock:
+                target = self.topo.stride_align(
+                    max(self.topo._max_volume_id,
+                        self.topo.max_volume_id) + 1)
+            self.raft.propose({"op": "max_volume_id", "value": target})
+            return target
 
     def is_leader(self) -> bool:
         return self.raft is None or self.raft.is_leader()
@@ -411,11 +504,13 @@ class MasterServer:
     def start(self) -> None:
         self.server.start()
         self._sweeper.start()
-        if self.lifecycle.policy.rules:
-            self.lifecycle.start()
+        if self.raft is not None:
+            self.raft.start()
         if self.admin_scripts:
             threading.Thread(target=self._admin_script_loop,
                              daemon=True, name="master-cron").start()
+        if self.lifecycle.policy.rules:
+            self.lifecycle.start()
 
     def stop(self) -> None:
         self._stop.set()
@@ -426,6 +521,8 @@ class MasterServer:
             self.usage_rollup.save(force=True)
         except OSError:
             pass
+        if self.raft is not None:
+            self.raft.stop()
         self.server.stop()
 
     def url(self) -> str:
@@ -853,14 +950,20 @@ class MasterServer:
         if not self.is_leader():
             return self._proxy_to_leader("/dir/assign", query, body)
         self._check_assign_quota(query.get("_tenant", ""))
+        from .raft import NotLeader
         option = self._option_from_query(query)
         count = int(query.get("count", 1))
         layout = self.topo.layout_for(option)
         if layout.active_volume_count(option) == 0:
             with self._grow_lock:
                 if layout.active_volume_count(option) == 0:
-                    grown = self.vg.grow_by_type(
-                        self.topo, option, self._allocate_volume)
+                    try:
+                        grown = self.vg.grow_by_type(
+                            self.topo, option, self._allocate_volume)
+                    except NotLeader:
+                        # Lost leadership mid-grow; hand the request on.
+                        return self._proxy_to_leader("/dir/assign",
+                                                     query, body)
                     if grown == 0:
                         raise rpc.RpcError(
                             406, "no free volumes and cannot grow")
@@ -872,6 +975,11 @@ class MasterServer:
         try:
             fid, count, locs = self.topo.pick_for_write(
                 count, option, layout, exclude=exclude)
+        except NotLeader:
+            # The RaftSequencer's block alloc can discover lost
+            # leadership (exactly the failover window it exists for):
+            # hand the request to the new leader like the grow path.
+            return self._proxy_to_leader("/dir/assign", query, body)
         except TimeoutError as e:
             raise rpc.RpcError(
                 503, f"file-id allocation not committed: {e}") from None
@@ -885,6 +993,9 @@ class MasterServer:
                 try:
                     grown = self.vg.grow_by_type(self.topo, option,
                                                  self._allocate_volume)
+                except NotLeader:
+                    return self._proxy_to_leader("/dir/assign", query,
+                                                 body)
                 except Exception:  # noqa: BLE001 — no healthy slots
                     grown = 0
             if grown:
@@ -900,6 +1011,9 @@ class MasterServer:
                     503, "no writable volumes outside draining/"
                          "low-disk nodes; retry",
                     headers={"Retry-After": "1"}) from None
+            except NotLeader:
+                return self._proxy_to_leader("/dir/assign", query,
+                                             body)
         dn = locs[0]
         out = {"fid": fid, "count": count,
                "url": dn.url(), "publicUrl": dn.public_url,

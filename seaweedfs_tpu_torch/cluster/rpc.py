@@ -1511,10 +1511,19 @@ class JsonHttpServer:
                         if nt is not None:
                             nt(int(size))
                     else:
-                        while True:
-                            chunk = payload.read(1 << 20)
+                        # A sized payload sends exactly the bytes it
+                        # announced, even from a file that grows while
+                        # it streams: more would desync the peer's
+                        # next keep-alive response.
+                        left = None if chunked else int(size)
+                        while left is None or left > 0:
+                            chunk = payload.read(
+                                1 << 20 if left is None
+                                else min(1 << 20, left))
                             if not chunk:
                                 break
+                            if left is not None:
+                                left -= len(chunk)
                             _note_out(len(chunk))
                             if chunked:
                                 conn.sendall(b"%x\r\n" % len(chunk)

@@ -17,11 +17,8 @@ discovery) runs on `device` ("cuda" by default; "cpu" runs the kernels'
 plain versions), resolved before any socket is bound, so a server asked
 for a card that is not there refuses to start.
 
-Not ported yet: the cross-cluster shipper (`replicate_peer`) and the
-geo lease plane (`geo_cluster_id`) wait for ROADMAP queue 1 slice 10,
-and the /query route's SELECT engine for slice 11.  Asking for the
-first two raises NotImplementedError before any socket is bound; /query
-answers 501.
+Not ported yet: the /query route's SELECT engine waits for ROADMAP
+queue 1 slice 11 and answers 501.
 """
 
 from __future__ import annotations
@@ -91,6 +88,8 @@ class VolumeServer:
                  slo_read_p99: float | None = None,
                  slo_availability: float | None = None,
                  replicate_peer: str | None = None,
+                 replicate_collections: str = "",
+                 replicate_interval: float = 0.5,
                  tier_cache_mb: float = 64.0,
                  tier_promote_hits: int = 0,
                  tier_promote_window: float = 60.0,
@@ -98,20 +97,11 @@ class VolumeServer:
                  sendfile_min: int | None = None,
                  tenant_rules: str = "",
                  geo_cluster_id: str = "",
+                 replicate_compress: bool = False,
                  device="cuda"):
         # The card (or the CPU) every EC coder of this server runs on:
         # resolved first, so a missing card refuses the start.
         self.device = resolve_device(device)
-        # Not ported yet (ROADMAP queue 1, slice 10): refuse before any
-        # socket is bound rather than run without the feature.
-        if replicate_peer:
-            raise NotImplementedError(
-                "cross-cluster replication (-replicate.peer) is not "
-                "ported yet (ROADMAP queue 1, slice 10)")
-        if geo_cluster_id:
-            raise NotImplementedError(
-                "the geo lease plane (-geo.cluster.id) is not ported yet "
-                "(ROADMAP queue 1, slice 10)")
         # Seed master list; heartbeats follow leader hints and rotate
         # seeds on failure (volume_grpc_client_to_master.go:60-85).
         self.masters = list(master_url) if isinstance(master_url, list) \
@@ -213,14 +203,29 @@ class VolumeServer:
             repair_needle=self._repair_needle_from_replica,
             repair_ec_block=self._repair_ec_block,
             on_change=lambda: self._send_heartbeat(full=True))
-        # Cross-cluster mirroring and the geo lease plane wait for
-        # slice 10 (refused above): this server is never a shipper and
-        # holds no leases, and its apply side (the standby's
-        # _replication_apply) still applies a peer's batches
+        # Cross-cluster mirroring (-replicate.peer names the STANDBY
+        # cluster's master): a background shipper tails every local
+        # volume's durable change log and streams batches to the peer;
+        # the receive side (the standby's _replication_apply) applies
         # idempotently against per-volume applied-seq watermarks.
+        # Geo active/active (-geo.cluster.id): names THIS cluster in
+        # the lease plane.  Per-volume `.lease` sidecars make exactly
+        # one cluster the write home; non-holders forward writes and
+        # the apply path fences stale epochs (replication/lease.py).
         self.geo_cluster_id = geo_cluster_id
         self.leases = None
+        if geo_cluster_id:
+            from ..replication.lease import LeaseTable
+            self.leases = LeaseTable(self.store, geo_cluster_id)
         self.shipper = None
+        if replicate_peer:
+            from ..replication.shipper import ReplicationShipper
+            self.shipper = ReplicationShipper(
+                self.store, replicate_peer, node=self.url(),
+                collections=replicate_collections,
+                interval=replicate_interval,
+                cluster_id=geo_cluster_id,
+                compress=replicate_compress, leases=self.leases)
         self._replication_applied: dict[int, object] = {}
         self._replication_apply_lock = threading.Lock()
         s = self.server
@@ -2860,12 +2865,17 @@ class VolumeServer:
             raise rpc.RpcError(400, f"bad ext {ext}")
         v = self.store.find_volume(vid)
         base = v.file_name() if v is not None else self._volume_base(vid)
-        if v is not None:
-            v.sync()
         path = base + ext
         if not os.path.exists(path):
             raise rpc.RpcError(404, f"{os.path.basename(path)} not here")
-        return open(path, "rb")  # streamed by the server in 1MB chunks
+        f = open(path, "rb")  # streamed by the server in 1MB chunks
+        if v is None or ext == ".vif":
+            return f
+        # A mounted volume may be taking writes: send the sizes of one
+        # record boundary, not whatever the file holds when it is read.
+        dat, idx = v.copy_sizes()
+        return (200, f, {"Content-Length": str(dat if ext == ".dat"
+                                               else idx)})
 
     def _copy_volume(self, query: dict, body: bytes) -> dict:
         """VolumeCopy: pull .idx then .dat from a source server, then

@@ -89,9 +89,12 @@ def register(cmd: Command) -> None:
 
 def _load_all() -> None:
     # Import for registration side effects.  Only the commands the port
-    # has register: the other roles and client tools arrive with their
-    # slices (ROADMAP queue 1).
-    from . import client_cmds, servers  # noqa: F401
+    # has register: mount and the replication tools arrive with slice 11
+    # (ROADMAP queue 1).
+    from . import benchmark_cmd  # noqa: F401
+    from . import client_cmds  # noqa: F401
+    from . import offline_cmds  # noqa: F401
+    from . import servers  # noqa: F401
 
 
 def usage() -> str:

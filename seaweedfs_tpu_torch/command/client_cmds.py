@@ -1,10 +1,12 @@
-"""Client-side subcommands: upload / download / shell / version
-(reference: weed/command/upload.go, download.go, shell.go, version.go).
+"""Client-side subcommands: upload / download / shell / version /
+backup (reference: weed/command/upload.go, download.go, shell.go,
+version.go, backup.go; the port's copy of
+`seaweedfs_tpu/command/client_cmds.py`).
 
 `shell -device=cuda|cpu` (default cuda) names where the shell's own
 kernel launches run (ec.encode/ec.rebuild -batch); without a card,
 `cuda` exits with the reason.  `watch` and `scaffold` wait for the filer
-(ROADMAP queue 1, slice 11), `backup` for slice 8c.
+(ROADMAP queue 1, slice 11).
 """
 
 from __future__ import annotations
@@ -78,6 +80,65 @@ def run_shell(flags: Flags, args: list[str]) -> int:
                      filer_url=filer or None, device=device)
 
 
+def run_backup(flags: Flags, args: list[str]) -> int:
+    """weed backup: keep an incremental local copy of one volume
+    (command/backup.go + storage/volume_backup.go IncrementalBackup).
+    First run copies the whole .dat; later runs fetch only records
+    appended since the local copy's newest appendAtNs."""
+    from ..cluster import rpc
+    from ..storage.volume_backup import (apply_incremental,
+                                         last_append_at_ns)
+    master = _master(flags)
+    vid = flags.get_int("volumeId", 0)
+    out_dir = flags.get("dir", ".")
+    if not vid:
+        print("missing -volumeId", file=sys.stderr)
+        return 1
+    lookup = rpc.call(f"{master}/dir/lookup?volumeId={vid}")
+    locs = lookup.get("locations", [])
+    if not locs:
+        print(f"volume {vid} has no locations", file=sys.stderr)
+        return 1
+    node = locs[0]["url"]
+    os.makedirs(out_dir, exist_ok=True)
+    dat_path = os.path.join(out_dir, f"{vid}.dat")
+    idx_path = os.path.join(out_dir, f"{vid}.idx")
+    if not os.path.exists(dat_path):
+        # Full copy (VolumeCopy's CopyFile path).  The .idx comes FIRST
+        # so on a live volume the idx snapshot can never reference
+        # offsets past the .dat snapshot's EOF.
+        rpc.call_to_file(
+            f"http://{node}/admin/volume_file?volume={vid}&ext=.idx",
+            idx_path)
+        rpc.call_to_file(
+            f"http://{node}/admin/volume_file?volume={vid}&ext=.dat",
+            dat_path)
+        print(f"full backup of volume {vid} -> {dat_path}")
+        return 0
+    since = last_append_at_ns(dat_path)
+    import urllib.request
+    url = (f"http://{node}/admin/volume_tail?volume={vid}"
+           f"&since_ns={since}")
+    applied_total = 0
+    while True:
+        with urllib.request.urlopen(url, timeout=600) as resp:
+            delta = resp.read()
+            version = int(resp.headers.get("X-Volume-Version", "3"))
+            last = int(resp.headers.get("X-Last-Append-Ns", since))
+        if not delta:
+            break
+        applied_total += apply_incremental(dat_path, idx_path, delta,
+                                           version)
+        if last <= since:
+            break
+        since = last
+        url = (f"http://{node}/admin/volume_tail?volume={vid}"
+               f"&since_ns={since}")
+    print(f"incremental backup of volume {vid}: "
+          f"{applied_total} records appended")
+    return 0
+
+
 def run_version(flags: Flags, args: list[str]) -> int:
     print(f"version {__version__} (seaweedfs-tpu)")
     return 0
@@ -91,3 +152,7 @@ register(Command("shell", "shell -master=host:9333 [-device=cuda|cpu]"
                  " ['cmd1' 'cmd2' ...]",
                  "interactive admin shell", run_shell))
 register(Command("version", "version", "print version", run_version))
+register(Command("backup",
+                 "backup -master=host:9333 -volumeId=3 -dir=/backup",
+                 "incrementally back up one volume locally",
+                 run_backup))

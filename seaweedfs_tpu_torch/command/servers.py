@@ -254,11 +254,23 @@ def run_volume(flags: Flags, args: list[str]) -> int:
         # "rs" (reference-compatible RS(10,4)) or "lrc" (LRC(10,2,2),
         # 5-read single-shard repair).
         ec_codec=flags.get("ec.codec", "rs"),
-        # Cross-cluster mirroring and the geo lease plane (slice 10):
-        # the server refuses them.
+        # Cross-cluster async mirroring: -replicate.peer names the
+        # STANDBY cluster's master; every local write/delete journals
+        # to a per-volume change log and a background shipper tails it
+        # to the peer.  -replicate.collections opts specific
+        # collections in ("" or `default` = the default collection);
+        # empty = mirror everything.
         replicate_peer=(_norm_master(flags.get("replicate.peer"))
                         if flags.get("replicate.peer") else None),
+        replicate_collections=flags.get("replicate.collections", ""),
+        replicate_interval=flags.get_float("replicate.interval", 0.5),
+        # Geo active/active: -geo.cluster.id names THIS region and
+        # turns on the per-volume `.lease` fencing plane (writes at a
+        # non-holder forward to the holder; stale-epoch batches 409);
+        # -replicate.compress zlib-compresses shipped batches so the
+        # rlog.ship flow purpose meters actual WAN bytes.
         geo_cluster_id=flags.get("geo.cluster.id", ""),
+        replicate_compress=flags.get_bool("replicate.compress", False),
         # Remote-tier knobs: -tier.cache.mb bounds the read-through
         # block cache for tiered volumes; -tier.promote.hits (>0) turns
         # on auto-promotion — a tiered volume whose cache sees that
@@ -397,7 +409,10 @@ register(Command("volume",
                  " [-shutdown.grace=30] [-ec.codec=rs|lrc]"
                  " [-slo.read.p99=0.05] [-slo.availability=99.9]"
                  " [-tier.cache.mb=64] [-tier.promote.hits=0]"
-                 " [-tier.promote.window=60] [-tenant.rules=tenants.txt]",
+                 " [-tier.promote.window=60] [-tenant.rules=tenants.txt]"
+                 " [-replicate.peer=standby-master:9333]"
+                 " [-replicate.collections=a,b] [-replicate.interval=0.5]"
+                 " [-geo.cluster.id=A] [-replicate.compress]",
                  "start a volume server", run_volume))
 register(Command("server",
                  "server -dir=/data [-device=cuda|cpu]"

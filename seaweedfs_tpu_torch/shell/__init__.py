@@ -5,9 +5,8 @@ Reference: weed/shell/ — the `weed shell` REPL with its `command` interface
 Commands here drive the cluster purely through the master/volume-server
 RPC surfaces, exactly as the reference shell drives gRPC.
 
-The port has the EC, volume and lock/collection/cluster commands; the
-fs.*, trace, fault, cluster, profile, mirror, lifecycle and tenant
-command modules wait for ROADMAP queue 1 slices 8c and 11.
+The port has every command module but the filer's: `fs.*` and
+`volume.fsck` (command_fs) wait for ROADMAP queue 1 slice 11.
 """
 
 from .commands import COMMANDS, Command, run_command  # noqa: F401
@@ -17,3 +16,10 @@ from .env import CommandEnv, ShellError  # noqa: F401
 from . import command_ec  # noqa: F401,E402
 from . import command_volume  # noqa: F401,E402
 from . import command_misc  # noqa: F401,E402
+from . import command_trace  # noqa: F401,E402
+from . import command_fault  # noqa: F401,E402
+from . import command_cluster  # noqa: F401,E402
+from . import command_profile  # noqa: F401,E402
+from . import command_mirror  # noqa: F401,E402
+from . import command_lifecycle  # noqa: F401,E402
+from . import command_tenant  # noqa: F401,E402

@@ -850,6 +850,16 @@ class Volume:
         with self._lock:
             return self._append_at
 
+    def copy_sizes(self) -> tuple[int, int]:
+        """(.dat, .idx) bytes to copy of this volume: both flushed and
+        fsynced, taken together under the append lock, so that a copy of
+        a live volume ends between two records and its .idx names no
+        byte past its .dat."""
+        with self._lock:
+            self.sync()
+            return (self._append_at,
+                    os.path.getsize(self.file_name() + ".idx"))
+
     def garbage_ratio(self) -> float:
         total = self.dat_size()
         if total <= SUPER_BLOCK_SIZE:

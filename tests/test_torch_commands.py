@@ -1,0 +1,187 @@
+"""The port's command-line slice (`backup`, `fix`, `compact`, `export`,
+`benchmark`) held against the JAX package's.
+
+The offline commands run through `_torch_storage.twin`: each package
+writes the same volume in the same directory on pinned clocks, runs the
+command through its dispatcher, and the two must print the same text
+and leave byte-identical `.dat`, `.idx` and tar files.  `weed benchmark`
+runs against each package's in-process cluster, in one process and in
+spawned load processes, and both packages must count the same
+successful requests.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import os
+import tarfile
+
+import pytest
+
+from _torch_cluster import (PACKAGES, LiveCluster,  # noqa: F401
+                            hermetic_port_state, mod)
+from _torch_storage import twin
+
+pytestmark = pytest.mark.torch
+
+# The reference's subcommands that wait for the filer, the gateways or
+# the mount (ROADMAP queue 1, slice 11).
+LATER = {"watch", "scaffold", "filer", "msg.broker", "s3", "webdav", "mount",
+         "filer.replicate", "filer.sync", "filer.backup"}
+
+
+def test_dispatcher_offers_this_slices_commands():
+    ref, port = (mod(pkg, "command") for pkg in PACKAGES)
+    ref._load_all()
+    port._load_all()
+    assert {"backup", "fix", "compact", "export", "benchmark"} <= \
+        set(port.COMMANDS)
+    assert not LATER & set(port.COMMANDS)
+    # Everything the port offers, the reference offers under the same
+    # name and usage (the port's volume, server and shell add -device).
+    for name, cmd in port.COMMANDS.items():
+        assert name in ref.COMMANDS
+        if name in ("backup", "fix", "compact", "export", "benchmark"):
+            assert cmd.usage == ref.COMMANDS[name].usage
+
+
+def _main(m, argv):
+    """Run `weed <argv>` through one package's dispatcher; the exit code
+    and what it printed."""
+    cmd = mod(m.name, "command")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cmd.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _volume(m, root):
+    vol = m.volume.Volume(root, "", 7)
+    for i in range(1, 21):
+        n = m.needle.Needle(id=i, cookie=0x1234, data=f"payload-{i}".encode())
+        n.set_name(f"file-{i}.txt".encode())
+        vol.write_needle(n)
+    vol.delete_needle(3)
+    vol.delete_needle(9)
+    vol.close()
+
+
+def _reads(m, root, nids):
+    vol = m.volume.Volume(root, "", 7)
+    try:
+        out = {}
+        for nid in nids:
+            try:
+                out[nid] = vol.read_needle(nid).data
+            except Exception as e:  # noqa: BLE001 — the outcome
+                out[nid] = type(e).__name__
+        return out, vol.file_count()
+    finally:
+        vol.close()
+
+
+def _fix(m, root):
+    _volume(m, root)
+    os.remove(os.path.join(root, "7.idx"))
+    yield "fixed", {"run": _main(m, ["fix", f"-dir={root}", "-volumeId=7"])}
+    yield "reloaded", {"reads": _reads(m, root, (3, 5, 9, 20))}
+
+
+def _compact(m, root):
+    _volume(m, root)
+    before = os.path.getsize(os.path.join(root, "7.dat"))
+    run = _main(m, ["compact", f"-dir={root}", "-volumeId=7"])
+    yield "compacted", {"run": run, "before": before,
+                        "after": os.path.getsize(os.path.join(root, "7.dat"))}
+    yield "reloaded", {"reads": _reads(m, root, (3, 5, 9, 20))}
+
+
+def _export(m, root):
+    _volume(m, root)
+    tar_path = os.path.join(root, "out.tar")
+    run = _main(m, ["export", f"-dir={root}", "-volumeId=7", f"-o={tar_path}"])
+    with tarfile.open(tar_path) as tar:
+        names = tar.getnames()
+        data = tar.extractfile("file-5.txt").read()
+    yield "tar", {"run": run, "names": names, "file-5": data}
+    yield "listing", {"run": _main(m, ["export", f"-dir={root}",
+                                       "-volumeId=7"])}
+
+
+def test_fix_regenerates_idx(tmp_path, monkeypatch):
+    steps = dict(twin(tmp_path, monkeypatch, _fix))
+    assert steps["fixed"]["run"][0] == 0
+    reads, count = steps["reloaded"]["reads"]
+    assert count == 18 and reads[5] == b"payload-5"
+    assert reads[3] == "NotFoundError"
+
+
+def test_compact_shrinks(tmp_path, monkeypatch):
+    steps = dict(twin(tmp_path, monkeypatch, _compact))
+    assert steps["compacted"]["run"][0] == 0
+    assert steps["compacted"]["after"] < steps["compacted"]["before"]
+    reads, _count = steps["reloaded"]["reads"]
+    assert reads[5] == b"payload-5" and reads[3] == "NotFoundError"
+
+
+def test_export_tar_and_listing(tmp_path, monkeypatch):
+    steps = dict(twin(tmp_path, monkeypatch, _export))
+    assert "file-5.txt" in steps["tar"]["names"]
+    assert "file-3.txt" not in steps["tar"]["names"]
+    assert steps["tar"]["file-5"] == b"payload-5"
+    _rc, listing, _err = steps["listing"]["run"]
+    assert "file-5.txt" in listing and "file-9.txt" not in listing
+
+
+def _benchmark(pkg, root, argv):
+    cluster = LiveCluster(pkg, root, n=1)
+    try:
+        cmd = mod(pkg, "command")
+        bench = mod(pkg, "command.benchmark_cmd")
+        host = cluster.url().replace("http://", "")
+        flags, rest = cmd.parse_flags([f"-master={host}", *argv])
+        reports: list = []
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = bench.run_benchmark(flags, rest, reports)
+    finally:
+        cluster.stop()
+    return rc, [(r["requests"], r["errors"]) for r in reports]
+
+
+@pytest.mark.parametrize("argv", [
+    ["-n=200", "-size=1024", "-c=4", "-procs=1"],
+    ["-n=40", "-size=512", "-c=4", "-procs=2", "-cpu=false"]],
+    ids=["threads", "processes"])
+def test_benchmark_counts_equal(argv, tmp_path):
+    """weed benchmark at -n 200 (threads) and in two spawned load
+    processes: both packages complete every request, write then read."""
+    out = []
+    for pkg in PACKAGES:
+        d = tmp_path / pkg
+        d.mkdir()
+        out.append(_benchmark(pkg, d, argv))
+    assert out[1] == out[0]
+    n = int(argv[0].split("=")[1])
+    assert out[1] == (0, [(n, 0), (n, 0)])
+
+
+def test_benchmark_takes_one_master_in_both_packages():
+    """`weed benchmark -master=` names one master in both packages: a
+    seed list is read as one address (the clients elsewhere take
+    lists), so both fail alike on `-master=a,b`."""
+    out = []
+    for pkg in PACKAGES:
+        cmd = mod(pkg, "command")
+        bench = mod(pkg, "command.benchmark_cmd")
+        flags, rest = cmd.parse_flags(
+            ["-master=127.0.0.1:1,127.0.0.1:2", "-n=2", "-c=1", "-procs=1",
+             "-cpu=false", "-read=false"])
+        reports: list = []
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            rc = bench.run_benchmark(flags, rest, reports)
+        out.append((rc, [(r["requests"], r["errors"]) for r in reports],
+                    printed.getvalue().splitlines()[0]))
+    assert out[1] == out[0]
+    assert out[1][1] == [(0, 2)]
+    assert "http://127.0.0.1:1,127.0.0.1:2" in out[1][2]

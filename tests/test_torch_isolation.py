@@ -146,6 +146,53 @@ with tempfile.TemporaryDirectory() as d:
     for vs in servers:
         vs.stop()
     master.stop()
+    # This slice: a raft master, a shipping and leasing volume server,
+    # the mirror verbs and weed backup.
+    import time
+    from seaweedfs_tpu_torch.cluster.rpc import call, free_port
+    from seaweedfs_tpu_torch.command import COMMANDS, _load_all, parse_flags
+    standby = MasterServer(meta_dir=os.path.join(d, "sb"), pulse_seconds=60)
+    standby.start()
+    sb_vs = VolumeServer(standby.url(), [os.path.join(d, "sbv")],
+                         pulse_seconds=60, device="cpu")
+    sb_vs.start()
+    port = free_port()
+    primary = MasterServer(port=port, meta_dir=os.path.join(d, "pr"),
+                           pulse_seconds=60,
+                           peers=[f"http://127.0.0.1:{port}"])
+    primary.start()
+    while not primary.is_leader():
+        time.sleep(0.05)
+    pr_vs = VolumeServer(primary.url(), [os.path.join(d, "prv")],
+                         pulse_seconds=60, device="cpu",
+                         replicate_peer=standby.url(),
+                         replicate_interval=0.05, geo_cluster_id="A")
+    pr_vs.start()
+    call(f"{primary.url()}/vol/grow?count=1&collection=iso", "POST")
+    a = call(f"{primary.url()}/dir/assign?collection=iso")
+    vid = int(a["fid"].split(",")[0])
+    pr_vs.store.find_volume(vid).enable_rlog()
+    call(f"http://{a['url']}/{a['fid']}", "POST", payloads[2])
+    deadline = time.monotonic() + 60
+    while True:
+        st = call(f"http://{pr_vs.url()}/debug/replication")["rlog"]
+        if st.get(str(vid), {}).get("pending", 1) == 0:
+            break
+        assert time.monotonic() < deadline, st
+        time.sleep(0.05)
+    assert WeedClient(standby.url()).download(a["fid"]) == payloads[2]
+    pr_vs._send_heartbeat(full=True)
+    env = CommandEnv(primary.url(), device="cpu")
+    assert "peer(s):" in run_command(env, "cluster.mirror.status")
+    assert "HEALTHY" in run_command(env, "cluster.check")
+    env.close()
+    _load_all()
+    flags, rest = parse_flags([f"-master={primary.url()}",
+                               f"-volumeId={vid}",
+                               f"-dir={os.path.join(d, 'backup')}"])
+    assert COMMANDS["backup"].run(flags, rest) == 0
+    for srv in (pr_vs, primary, sb_vs, standby):
+        srv.stop()
 assert not any(sys.modules.get(n) for n in ("jax", "jaxlib", "seaweedfs_tpu"))
 print("ISOLATED-OK")
 """

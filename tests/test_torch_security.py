@@ -14,6 +14,7 @@ import pytest
 from _torch_cluster import (PACKAGES, both, hermetic_port_state,  # noqa: F401
                             mod, pin_clocks)
 from seaweedfs_tpu_torch import command
+from seaweedfs_tpu.cluster.master import MasterServer as RefMasterServer
 from seaweedfs_tpu_torch.cluster.master import MasterServer
 
 pytestmark = pytest.mark.torch
@@ -144,18 +145,22 @@ def test_dispatcher_lists_only_the_ported_commands(capsys):
     assert command.main(["-h"]) == 0
     out = capsys.readouterr().out
     for name in ("master", "volume", "server", "shell", "upload",
-                 "download", "version"):
+                 "download", "version", "backup", "fix", "compact",
+                 "export", "benchmark"):
         assert f"  {name} " in out
-    assert "filer " not in out and "backup " not in out
+    assert "filer " not in out and "watch " not in out
     assert command.main(["filer"]) == 2
     assert "unknown command" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    ({"peers": ["127.0.0.1:1", "127.0.0.1:2"]}, "raft"),
+    ({"peers": ["127.0.0.1:1", "127.0.0.1:2"]}, "-peers must include"),
 ])
 def test_unported_master_features_raise(kwargs, what):
-    """Raft (-peers) comes with slice 8c: asking for it fails instead of
-    running without it."""
-    with pytest.raises(NotImplementedError, match=what):
+    """Raft (-peers) is ported: a peer list that does not name this
+    master's own address is refused with the reference's error, rather
+    than run as a split brain."""
+    with pytest.raises(ValueError, match=what):
         MasterServer(**kwargs)
+    with pytest.raises(ValueError, match=what):
+        RefMasterServer(**kwargs)
