@@ -5,6 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--dat-mib 1024] [--batch-div 1]
                           [--live-mib 1024] [--ha-mib 1024]
+                          [--filer-mib 1024]
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -119,8 +120,8 @@ Phases; any failure raises and the script exits non-zero:
              `python -m seaweedfs_tpu_torch master` in a process that
              blocks jax, jaxlib and seaweedfs_tpu; after one full beat
              per node and one delta per pulse, 8 client threads on
-             rpc.call's keep-alive pool send 20 000 /dir/assign
-             (count=1, replication=010) and 20 000 /dir/lookup over the
+             rpc.call's keep-alive pool send 10 000 /dir/assign
+             (count=1, replication=010) and 10 000 /dir/lookup over the
              224 volumes and the EC volume; then /vol/list,
              /cluster/healthz, one node's goodbye and lookups of what it
              held, and /cluster/device.  Every fid must name a declared
@@ -199,11 +200,40 @@ Phases; any failure raises and the script exits non-zero:
              rows), each equal to its original; every needle reads back.
              `cluster.check`, `cluster.roofline` (the card's K1/K2 rows),
              `cluster.flows` and `events.ls` on the leader; `weed
-             benchmark -n 20000 -size 1024 -c 16` against it.
+             benchmark -n 5000 -size 1024 -c 16` against it.
+
+12. filer  — a filer-fronted EC cluster: upstream's `weed master
+             -volumeSizeLimitMB=30000 -defaultReplication=000`, six `weed
+             volume -max=7 -device=cuda` in 2 racks x 3 and `weed filer
+             -dir=<work>/filer` (its default embedded store for a
+             directory, the ordered KV store; files cut into 4 MiB
+             chunks), every role a `python -m seaweedfs_tpu_torch`
+             process, the limit cut to --filer-mib.  A namespace from
+             --seed goes in through the filer's HTTP API from 8 threads:
+             2 GiB of large files (log-uniform 64 KiB..16 MiB), 20 000
+             small ones (1..16 KiB) over 256 directories three levels
+             deep, every acknowledged write recorded with its sha256;
+             `fs.ls` of every directory and `fs.du /` must match it; the
+             filer is SIGKILLed and restarted on the same -dir, and every
+             entry and a sample of 1000 files must read back equal.
+             `lock; ec.encode` of the volumes that hold the namespace (the
+             full ones and the overflow) runs in a shell process (K2 in
+             the holders, as many as write_ec_files of their sealed .dat
+             copies here, every shard and .ecc entry equal); the holder of
+             the most shards of one volume is SIGKILLed; every file reads
+             back through the filer (K1 10->1 in the survivors, as many as
+             the lost intervals of the chunks read, less those of chunks
+             the filer's chunk cache held), then 300 ranges across chunk
+             boundaries; `volume.fsck -orphans` through CommandEnv.filer()
+             finds 0 missing and 0 orphans; after the dead-node sweep
+             `ec.rebuild` restores the lost shards byte for byte and every
+             file reads back again; `fs.rm -r` of one directory, and once
+             its chunk deletes have landed, fsck again finds 0 orphans.
 
 Phase 6 runs before phase 8, phase 8 before phase 9, phase 9 before phase
-10, phase 10 before phase 11, and phase 11 before phase 5, whose timings
-include phase 6's shapes; phase 7 runs last.
+10, phase 10 before phase 11, phase 11 before phase 12, and phase 12
+before phase 5, whose timings include phase 6's shapes; phase 7 runs
+last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
@@ -220,7 +250,11 @@ and step in the shell's process and the volume servers, device busy
 share, every process's RSS), a {"ha_cluster": ...} line (walls and GB/s
 per step, seconds to a new leader, to mirror convergence and to repair,
 degraded-read p50/p99, the backup's and the mirror's checks, benchmark
-rates, launches per kernel, step and process, every process's RSS),
+rates, launches per kernel, step and process, every process's RSS), a
+{"filer_cluster": ...} line (write GB/s, small-file creates/s and p99,
+listing and filer-restart seconds, degraded-read and range p50/p99,
+chunk-cache hits, K1/K2 launches per step in the volume servers, the
+fsck reports, every process's RSS, device busy share),
 nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
 "device": {...}}.
 """
@@ -316,8 +350,10 @@ CLUSTER_MAX_VOLUMES = 7
 CLUSTER_SIZE_LIMIT_MB = 30000
 CLUSTER_REPLICATION = "010"
 CLUSTER_PULSE_S = 5
-CLUSTER_ASSIGNS = 20000
-CLUSTER_LOOKUPS = 20000
+# Cut from 20 000 each per transport when phase 12 joined the script,
+# to keep the whole script well within its time limit.
+CLUSTER_ASSIGNS = 10000
+CLUSTER_LOOKUPS = 10000
 CLUSTER_CLIENTS = 8
 CLUSTER_TRANSPORTS = ("threads", "aio")
 CLUSTER_BASE_PORT = 41000
@@ -336,7 +372,7 @@ LIVE_NODES = 6
 LIVE_RACKS = 2
 LIVE_MAX_VOLUMES = 7
 LIVE_REPLICATION = "000"
-LIVE_LIMIT_MB = 1024  # --live-mib
+LIVE_LIMIT_MB = 512  # --live-mib (1024 before phase 12 joined)
 LIVE_COLLECTION = "ec10"
 LIVE_VOLUMES = 3
 LIVE_FULL_PERCENT = 95
@@ -367,9 +403,33 @@ HA_FULL_PERCENT = 95
 HA_WRITERS = 8
 HA_READS = 300
 HA_REPAIR_DELAY_S = 3  # -repair.delay
-HA_BENCH_N = 20000  # upstream's `weed benchmark -n` is 1048576
+HA_BENCH_N = 5000  # upstream's `weed benchmark -n` is 1048576 (20000
+# before phase 12 joined)
 HA_BENCH_SIZE = 1024
 HA_BENCH_C = 16
+# Phase 12 (`phase_filer_cluster`): upstream's production layout, six
+# `weed volume -max=7` in 2 racks x 3 under `weed master
+# -volumeSizeLimitMB=30000 -defaultReplication=000` and `weed filer
+# -dir=...` (its default embedded store for a directory, files cut into
+# 4 MiB chunks), the limit cut to --filer-mib.
+FILER_NODES = 6
+FILER_RACKS = 2
+FILER_MAX_VOLUMES = 7
+FILER_REPLICATION = "000"
+FILER_LIMIT_MB = 1024  # --filer-mib
+FILER_COLLECTION = "fs12"
+FILER_PREGROW = 2  # volumes the large files fill
+FILER_FULL_PERCENT = 95
+FILER_LARGE_PER_LIMIT = 2  # 2 GiB of large files at a 1024 MiB limit
+FILER_LARGE_RANGE = (64 << 10, 16 << 20)
+FILER_SMALL = 20000  # small files per 1024 MiB of limit
+FILER_SMALL_RANGE = (1 << 10, 16 << 10)
+FILER_DIRS = (4, 8, 8)  # three levels, 256 leaf directories
+FILER_BLOB_MIB = 64
+FILER_WRITERS = 8
+FILER_SAMPLE = 1000  # files read back after the filer's restart
+FILER_RANGES = 300
+FILER_RM_DIR = "/a0/b0"
 # `python -m seaweedfs_tpu_torch <args>` (runpy.run_module is what -m
 # runs) with the JAX package and JAX itself blocked in sys.modules.
 MASTER_LAUNCH = (
@@ -1878,7 +1938,9 @@ def phase_cluster(torch, dev, args) -> dict:
           f"{len(vids)} volumes, {len(ec)} EC shards declared")
     gone = next(i for i, hb in enumerate(hbs) if i and hb["ec_shards"])
     gone_url = node_key(hbs[gone])
-    out: dict = {"config": {
+    out: dict = {"reduced": {"requests_per_transport": [20000,
+                                                        CLUSTER_ASSIGNS]},
+                 "config": {
         "master": f"weed master -volumeSizeLimitMB={CLUSTER_SIZE_LIMIT_MB} "
                   f"-defaultReplication={CLUSTER_REPLICATION} "
                   f"-pulseSeconds={CLUSTER_PULSE_S}",
@@ -2170,6 +2232,76 @@ def ecc_entries(path: str) -> dict:
         return {int(s): c for s, c in json.load(f)["shards"].items()}
 
 
+def encode_sealed_copies(env, vids, work: str, dev) -> tuple[dict, dict]:
+    """Seal each volume of `vids` (readonly on every holder), copy its
+    .dat and .idx here and encode the copy with write_ec_files on `dev`:
+    ({vid: sha256 of each shard, .ecc entries, .ecx sha256, base, .dat
+    bytes}, {vid: launches per kernel}).  Each copy keeps its .ecx, .vif
+    and shard 0 (for locating needles); the rest is removed."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.ec.encoder import (write_ec_files,
+                                                write_sorted_file_from_idx)
+    reference: dict = {}
+    launches: dict = {}
+    for vid in vids:
+        for node in env.volume_locations(vid):
+            env.vs_call(node, "/admin/readonly",
+                        {"volume": vid, "readonly": True})
+        holder = env.volume_locations(vid)[0]
+        base = os.path.join(work, "ref", str(vid))
+        os.makedirs(os.path.dirname(base), exist_ok=True)
+        for ext in (".dat", ".idx"):
+            rpc.call_to_file(f"http://{holder}/admin/volume_file?"
+                             f"volume={vid}&ext={ext}", base + ext)
+        write_sorted_file_from_idx(base)
+        reset_counts()
+        write_ec_files(base, device=dev)
+        launches[vid] = {k: c["launches"] for k, c in read_counts().items()}
+        reference[vid] = {
+            "shards": {s: sha256_file(f"{base}.ec{s:02d}")
+                       for s in range(14)},
+            "ecc": ecc_entries(base + ".ecc"),
+            "ecx": sha256_file(base + ".ecx"), "base": base,
+            "dat_bytes": os.path.getsize(base + ".dat")}
+        for path in [base + ".dat"] + [f"{base}.ec{s:02d}"
+                                       for s in range(1, 14)]:
+            os.remove(path)
+    return reference, launches
+
+
+def check_encoded_shards(env, dirs: dict, reference: dict,
+                         ecc_required=()) -> tuple[dict, int]:
+    """Every volume of `reference` must have its 14 shards on the
+    servers' disks where the master says, each equal to the copy's, with
+    the copy's .ecx; a .ecc entry present must be the copy's, and must be
+    present for the volumes of `ecc_required` (a shard the per-volume
+    flow copied has none until its first scrub).  Returns ({vid: {shard:
+    node}}, .ecc entries checked)."""
+    holders: dict = {}
+    ecc_checked = 0
+    for vid, ref in reference.items():
+        files = shard_files(dirs, vid)
+        check(sorted(files) == list(range(14)),
+              f"volume {vid} shards on disk: {sorted(files)}")
+        locs = env.ec_shard_locations(vid)
+        for sid, (node, path) in files.items():
+            check(locs.get(sid) == [node],
+                  f"volume {vid} shard {sid}: master says {locs.get(sid)}"
+                  f", disk {node}")
+            check(sha256_file(path) == ref["shards"][sid],
+                  f"volume {vid} shard {sid} differs from write_ec_files")
+            entry_ = ecc_entries(path[:-5] + ".ecc").get(sid)
+            check(entry_ in (None, ref["ecc"][sid]),
+                  f"volume {vid} shard {sid}: .ecc entry differs")
+            check(entry_ is not None or vid not in ecc_required,
+                  f"volume {vid} shard {sid}: no .ecc entry after -batch")
+            ecc_checked += entry_ is not None
+            check(sha256_file(path[:-5] + ".ecx") == ref["ecx"],
+                  f"volume {vid} .ecx differs")
+        holders[vid] = {sid: node for sid, (node, _p) in files.items()}
+    return holders, ecc_checked
+
+
 def rebuild_launches(lost: dict, shard_bytes: dict,
                      budget: int = LIVE_REBUILD_BUDGET) -> int:
     """Launches `ec.rebuild -batch` makes for RS volumes that lost the
@@ -2239,8 +2371,6 @@ def phase_live_cluster(torch, dev, args) -> dict:
     from seaweedfs_tpu_torch.cluster import rpc
     from seaweedfs_tpu_torch.cluster.client import WeedClient
     from seaweedfs_tpu_torch.core import types as t
-    from seaweedfs_tpu_torch.ec.encoder import (write_ec_files,
-                                                write_sorted_file_from_idx)
     from seaweedfs_tpu_torch.ec.volume import EcVolume
     from seaweedfs_tpu_torch.shell import CommandEnv, run_command
     from seaweedfs_tpu_torch.stats import roofline
@@ -2341,34 +2471,8 @@ def phase_live_cluster(torch, dev, args) -> dict:
 
         # -- seal and copy each volume; the card's single-volume encode ---
         env = CommandEnv(murl, device=dev)
-        reference: dict = {}
-        ref_launches: dict = {}
-        for vid in vids:
-            for node in env.volume_locations(vid):
-                env.vs_call(node, "/admin/readonly",
-                            {"volume": vid, "readonly": True})
-            holder = env.volume_locations(vid)[0]
-            base = os.path.join(work, "ref", str(vid))
-            os.makedirs(os.path.dirname(base), exist_ok=True)
-            for ext in (".dat", ".idx"):
-                rpc.call_to_file(f"http://{holder}/admin/volume_file?"
-                                 f"volume={vid}&ext={ext}", base + ext)
-            write_sorted_file_from_idx(base)
-            reset_counts()
-            write_ec_files(base, device=dev)
-            ref_launches[vid] = read_counts()
-            reference[vid] = {
-                "shards": {s: sha256_file(f"{base}.ec{s:02d}")
-                           for s in range(14)},
-                "ecc": ecc_entries(base + ".ecc"),
-                "ecx": sha256_file(base + ".ecx"), "base": base}
-            # Kept for locating needles: .ecx, .vif and one shard's size.
-            for path in [base + ".dat"] + [f"{base}.ec{s:02d}"
-                                           for s in range(1, 14)]:
-                os.remove(path)
+        reference, ref_k = encode_sealed_copies(env, vids, work, dev)
         # K2 on the card (fused CRC), K1 on the CPU (the CRC on the host).
-        ref_k = {v: {k: c["launches"] for k, c in ref_launches[v].items()}
-                 for v in vids}
         n_ref = {v: sum(ref_k[v].values()) for v in vids}
         check(all(n_ref.values()), f"reference encodes launched {ref_k}")
         vol_a, vol_b, vol_c = vids
@@ -2442,30 +2546,8 @@ def phase_live_cluster(torch, dev, args) -> dict:
             "volume_servers": vs_kernel_launches(step)}
 
         # -- every shard and .ecc entry against the card's encode ---------
-        holders: dict = {}
-        ecc_checked = 0
-        for vid in vids:
-            files = shard_files(dirs, vid)
-            check(sorted(files) == list(range(14)),
-                  f"volume {vid} shards on disk: {sorted(files)}")
-            locs = env.ec_shard_locations(vid)
-            for sid, (node, path) in files.items():
-                check(locs.get(sid) == [node],
-                      f"volume {vid} shard {sid}: master says {locs.get(sid)}"
-                      f", disk {node}")
-                check(sha256_file(path) == reference[vid]["shards"][sid],
-                      f"volume {vid} shard {sid} differs from write_ec_files")
-                # A shard copied by the per-volume flow has no entry until
-                # its first scrub; every entry present must be the card's.
-                entry_ = ecc_entries(path[:-5] + ".ecc").get(sid)
-                check(entry_ in (None, reference[vid]["ecc"][sid]),
-                      f"volume {vid} shard {sid}: .ecc entry differs")
-                check(entry_ is not None or vid == vol_a,
-                      f"volume {vid} shard {sid}: no .ecc entry after -batch")
-                ecc_checked += entry_ is not None
-                check(sha256_file(path[:-5] + ".ecx")
-                      == reference[vid]["ecx"], f"volume {vid} .ecx differs")
-            holders[vid] = {sid: node for sid, (node, _p) in files.items()}
+        holders, ecc_checked = check_encoded_shards(
+            env, dirs, reference, ecc_required=(vol_b, vol_c))
         out["shards_checked"] = 14 * len(vids)
         out["ecc_entries_checked"] = ecc_checked
 
@@ -3468,6 +3550,529 @@ def leader_device_rows(murl: str) -> dict:
     return {doc["leader"]: device_counts(node) if node else {}}
 
 
+
+# -- phase 12: a filer-fronted EC cluster on the card ------------------------
+
+
+def filer_namespace(seed: int, limit_mb: int) -> dict:
+    """The seeded namespace of phase 12, {path: (offset, size)} into one
+    random blob: FILER_LARGE_PER_LIMIT x the volume limit of large files
+    (log-uniform FILER_LARGE_RANGE, capped at a quarter of the limit),
+    FILER_SMALL small ones per 1024 MiB of limit (log-uniform
+    FILER_SMALL_RANGE), spread over the leaf directories of a tree
+    FILER_DIRS wide at each of its three levels."""
+    rng = np.random.default_rng(seed + 12)
+    blob_bytes = FILER_BLOB_MIB * MIB
+    a, b, c = FILER_DIRS
+    leaves = [f"/a{i}/b{j}/c{k}" for i in range(a) for j in range(b)
+              for k in range(c)]
+    lo, hi = FILER_LARGE_RANGE
+    hi = min(hi, limit_mb * MIB // 4)
+    large: dict = {}
+    total, i = 0, 0
+    while total < FILER_LARGE_PER_LIMIT * limit_mb * MIB:
+        size = int(math.exp(rng.uniform(math.log(lo), math.log(hi))))
+        d = leaves[int(rng.integers(len(leaves)))]
+        large[f"{d}/L{i:05d}.bin"] = (int(rng.integers(blob_bytes - size)),
+                                      size)
+        total += size
+        i += 1
+    small: dict = {}
+    lo, hi = FILER_SMALL_RANGE
+    for j in range(max(FILER_SMALL * limit_mb // 1024, 200)):
+        size = int(math.exp(rng.uniform(math.log(lo), math.log(hi))))
+        d = leaves[int(rng.integers(len(leaves)))]
+        small[f"{d}/s{j:05d}.bin"] = (int(rng.integers(blob_bytes - size)),
+                                      size)
+    return {"blob": memoryview(rng.bytes(blob_bytes)), "large": large,
+            "small": small, "leaves": leaves}
+
+
+def pool_run(items, work, workers: int) -> tuple[float, list]:
+    """work(item) over `items` from `workers` threads; returns the wall
+    and every item's latency in s.  Fails on the first error."""
+    it = iter(items)
+    lock = threading.Lock()
+    errors: list = []
+    lat: list = []
+
+    def run():
+        while not errors:
+            with lock:
+                item = next(it, None)
+            if item is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                work(item)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{item!r:.200}: {e!r:.300}")
+                return
+            lat.append(time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=run) for _ in range(workers)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"{len(errors)} failed: {errors[:3]}")
+    return time.perf_counter() - t0, lat
+
+
+def filer_listing(env, expected: dict) -> None:
+    """`fs.ls` of every directory of `expected` ({dir: names}, a
+    directory's name ending in /) must list exactly those names (the
+    root at least them)."""
+    from seaweedfs_tpu_torch.shell import run_command
+    for d, names in sorted(expected.items()):
+        got = set(filter(None, run_command(env, f"fs.ls {d}").split("\n")))
+        check(got >= names if d == "/" else got == names,
+              f"fs.ls {d}: {len(got)} names, {len(got ^ names)} differ "
+              f"from what was written")
+
+
+def lost_intervals(evs: dict, lost: dict, fids) -> int:
+    """K1 10->1 launches a whole read of each chunk of `fids` needs:
+    the intervals of its needle on a lost shard (evs: vid -> EcVolume of
+    the reference copy, lost: vid -> shard ids)."""
+    from seaweedfs_tpu_torch.core import types as t
+    n = 0
+    for fid in fids:
+        vid, key, _cookie = t.parse_file_id(fid)
+        if vid not in evs:
+            continue
+        ev = evs[vid]
+        _o, _s, intervals = ev.locate_needle(key)
+        n += sum(iv.to_shard_id_and_offset(ev.large_block_size,
+                                           ev.small_block_size)[0]
+                 in lost.get(vid, ()) for iv in intervals)
+    return n
+
+
+def phase_filer_cluster(torch, dev, args) -> dict:
+    """Phase 12: the port's filer in front of a live EC cluster on the
+    card's host, every role a `python -m seaweedfs_tpu_torch` process:
+    write a seeded namespace through the filer's HTTP API, list it, kill
+    -9 and restart the filer, ec.encode in the holders (K2), kill -9 a
+    holder, read every file and 300 ranges through the filer (K1 in the
+    survivors), volume.fsck through CommandEnv.filer(), ec.rebuild, read
+    everything again, fs.rm -r a directory and fsck once its deletes
+    land.  Every shard and .ecc entry is held against write_ec_files of
+    a copy of its sealed .dat on `dev`; every launch is counted per
+    process through /cluster/device and reconciled with the intervals
+    the reads needed."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.core import types as t
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.shell.command_volume import VolumeFsck
+
+    t_phase = time.perf_counter()
+    limit_mb = args.filer_mib
+    limit = limit_mb * MIB
+    work = os.path.join(REPO, "_smoke_work", "filer")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev_flag = f"-device={dev.type}"
+    procs: list = []
+    env = None
+    evs: dict = {}
+    out: dict = {"reduced": {"volume_size_limit_mb": [30000, limit_mb],
+                             "hosts": [FILER_NODES + 2, 1]},
+                 "walls_s": {}, "gb_s": {}, "launches": {}}
+    try:
+        mport, fport = rpc.free_port(), rpc.free_port()
+        murl = f"http://127.0.0.1:{mport}"
+        furl = f"http://127.0.0.1:{fport}"
+        master = port_process(
+            ["master", f"-port={mport}", f"-mdir={work}/master",
+             f"-volumeSizeLimitMB={limit_mb}",
+             f"-defaultReplication={FILER_REPLICATION}"],
+            os.path.join(work, "master.log"))
+        procs.append(master)
+        wait_for(lambda: rpc.call(murl + "/dir/status", timeout=2.0),
+                 "the master", procs)
+        dirs: dict = {}
+        vs_procs: dict = {}
+        for i in range(FILER_NODES):
+            port = rpc.free_port()
+            node = f"127.0.0.1:{port}"
+            dirs[node] = os.path.join(work, f"vs{i}")
+            os.makedirs(dirs[node])
+            vs_procs[node] = port_process(
+                ["volume", dev_flag, f"-port={port}", f"-dir={dirs[node]}",
+                 f"-max={FILER_MAX_VOLUMES}", f"-mserver=127.0.0.1:{mport}",
+                 "-dataCenter=dc1",
+                 f"-rack=rack{i * FILER_RACKS // FILER_NODES}"],
+                os.path.join(work, f"vs{i}.log"))
+            procs.append(vs_procs[node])
+        filer_args = ["filer", f"-port={fport}",
+                      f"-master=127.0.0.1:{mport}",
+                      f"-dir={work}/filer",
+                      f"-collection={FILER_COLLECTION}"]
+        filer = port_process(filer_args, os.path.join(work, "filer.log"))
+        procs.append(filer)
+        wait_for(lambda: len(rpc.call_status(
+            murl + "/cluster/healthz", timeout=2.0)[1]["nodes"])
+            == FILER_NODES, f"{FILER_NODES} volume servers", procs)
+        wait_for(lambda: rpc.call(furl + "/", timeout=2.0), "the filer",
+                 procs)
+        out["startup_s"] = time.perf_counter() - t_phase
+        with open(os.path.join(work, "filer.log")) as f:
+            text = f.read()
+        # Off without grpcio/protobuf (the card's host), else serving.
+        out["filer_grpc"] = "off" if "gRPC plane disabled" in text \
+            else "on" if "filer gRPC" in text else None
+        check(out["filer_grpc"] is not None,
+              "the filer did not log its gRPC plane's state")
+
+        # -- 1. write the namespace from 8 threads ------------------------
+        rpc.call(f"{murl}/vol/grow?count={FILER_PREGROW}"
+                 f"&collection={FILER_COLLECTION}", "POST")
+        ns = filer_namespace(args.seed, limit_mb)
+        blob = ns["blob"]
+        files = {**ns["large"], **ns["small"]}
+        acked: dict = {}  # path -> sha256 of what the filer acknowledged
+
+        def put(path):
+            off, size = files[path]
+            data = bytes(blob[off:off + size])
+            rpc.call(furl + path, "POST", data, timeout=600.0)
+            acked[path] = hashlib.sha256(data).hexdigest()
+
+        large_bytes = sum(s for _o, s in ns["large"].values())
+        wall, _lat = pool_run(sorted(ns["large"]), put, FILER_WRITERS)
+        out["walls_s"]["write_large"] = wall
+        out["gb_s"]["write_large"] = large_bytes / wall / 1e9
+        wall, lat = pool_run(sorted(ns["small"]), put, FILER_WRITERS)
+        out["walls_s"]["write_small"] = wall
+        out["small_creates_per_s"] = len(ns["small"]) / wall
+        out["small_create_ms"] = {"p50": pct_ms(lat, 50),
+                                  "p99": pct_ms(lat, 99)}
+        written = sum(s for _o, s in files.values())
+        check(len(acked) == len(files), "a write went unacknowledged")
+        out["namespace"] = {"large_files": len(ns["large"]),
+                            "large_bytes": large_bytes,
+                            "small_files": len(ns["small"]),
+                            "bytes": written,
+                            "directories": len(ns["leaves"])}
+        log(f"filer: wrote {len(files)} files, {written / MIB:.0f} MiB "
+            f"(large {out['gb_s']['write_large']:.3f} GB/s, small "
+            f"{out['small_creates_per_s']:.0f} creates/s)")
+
+        # -- 2. list it ----------------------------------------------------
+        expected: dict = {"/": set()}
+        for path in files:
+            parts = path.split("/")[1:]
+            for k in range(len(parts)):
+                parent = "/" + "/".join(parts[:k])
+                name = parts[k] + ("/" if k < len(parts) - 1 else "")
+                expected.setdefault(parent, set()).add(name)
+        env = CommandEnv(murl, filer_url=furl, device=dev)
+        t0 = time.perf_counter()
+        filer_listing(env, expected)
+        du = run_command(env, "fs.du /")
+        out["walls_s"]["listing"] = time.perf_counter() - t0
+        check(du.startswith(f"{written} bytes, {len(files)} files, "),
+              f"fs.du /: {du!r}, written {written} bytes in {len(files)} "
+              f"files")
+        out["fs_du"] = du
+        log(f"filer: listed in {out['walls_s']['listing']:.1f} s")
+
+        # -- 3. kill -9 the filer, restart it on the same -dir ------------
+        out["rss_mib"] = {"filer_after_write": rss_mib(filer.pid)}
+        filer.kill()
+        filer.wait(30)
+        procs.remove(filer)
+        t0 = time.perf_counter()
+        filer = port_process(filer_args,
+                             os.path.join(work, "filer-restart.log"))
+        procs.append(filer)
+        wait_for(lambda: rpc.call(furl + "/a0/", timeout=2.0),
+                 "the restarted filer", procs)
+        out["walls_s"]["filer_restart"] = time.perf_counter() - t0
+        chunks: dict = {}  # path -> [(file id, offset, size)]
+
+        def meta(path):
+            doc = rpc.call(f"{furl}{path}?metadata=true", timeout=60.0)
+            chunks[path] = sorted(((c["file_id"], c["offset"], c["size"])
+                                   for c in doc["chunks"]),
+                                  key=lambda c: c[1])
+            check(sum(s for _f, _o, s in chunks[path]) == files[path][1],
+                  f"{path}: chunks cover {chunks[path]}")
+
+        wall, _lat = pool_run(sorted(files), meta, FILER_WRITERS)
+        filer_listing(env, expected)
+        out["walls_s"]["entries_after_restart"] = wall
+        n_chunks = sum(len(c) for c in chunks.values())
+        check(max(len(c) for c in chunks.values()) > 1,
+              "no file was cut into several chunks")
+        rng = np.random.default_rng(args.seed + 13)
+        sample = [sorted(files)[i] for i in rng.choice(
+            len(files), min(FILER_SAMPLE, len(files)), replace=False)]
+
+        def read_equal(path):
+            data = bytes(rpc.call(furl + path, timeout=600.0))
+            check(hashlib.sha256(data).hexdigest() == acked[path],
+                  f"{path}: read back differs from what was acknowledged")
+
+        wall, _lat = pool_run(sample, read_equal, FILER_WRITERS)
+        out["walls_s"]["sample_after_restart"] = wall
+        out["after_restart"] = {"entries": len(chunks), "chunks": n_chunks,
+                                "sampled_reads": len(sample)}
+        log(f"filer: restarted in {out['walls_s']['filer_restart']:.1f} s, "
+            f"{len(chunks)} entries, {n_chunks} chunks")
+
+        # -- 4. lock; ec.encode the volumes that hold the namespace -------
+        vs_nodes = list(vs_procs)
+        rows0 = node_device_rows(murl, vs_nodes, time.time(), procs)
+        vids = sorted({t.parse_file_id(f)[0] for c in chunks.values()
+                       for f, _o, _s in c})
+        reference, ref_k = encode_sealed_copies(env, vids, work, dev)
+        dat_bytes = {v: reference[v]["dat_bytes"] for v in vids}
+        full = [v for v in vids
+                if dat_bytes[v] >= limit * FILER_FULL_PERCENT / 100]
+        check(len(full) >= 1, f"no volume filled: {dat_bytes}")
+        out["volumes"] = {"encoded": vids, "full": full,
+                          "dat_bytes": {str(v): n
+                                        for v, n in dat_bytes.items()}}
+        want_k2 = sum(k.get("rs_bitmatrix_crc", 0) for k in ref_k.values())
+        want_k1 = sum(k.get("rs_bitmatrix", 0) for k in ref_k.values())
+        check(want_k2 + want_k1 > 0, f"reference encodes launched {ref_k}")
+        shell_out, wall, shell_rss = run_port(
+            ["shell", dev_flag, f"-master=127.0.0.1:{mport}", "lock",
+             "ec.encode -volumeId " + ",".join(map(str, vids))],
+            os.path.join(work, "shell-encode.log"), MASTER_LAUNCH, procs)
+        for vid in vids:
+            check(f"volume {vid} -> ec shards" in shell_out,
+                  f"shell ec.encode: {shell_out[-2000:]}")
+        out["walls_s"]["encode"] = wall
+        out["gb_s"]["encode"] = sum(dat_bytes.values()) / wall / 1e9
+        out["rss_mib"]["shell_max_sampled"] = shell_rss
+        rows1 = node_device_rows(murl, vs_nodes, time.time(), procs)
+        step = rows_delta(rows0, rows1)
+        got = vs_kernel_launches(step)
+        out["launches"]["encode"] = {"volume_servers": got}
+        check(set(step) <= {"encode_crc_kernel", "encode_kernel"}
+              and got == {"rs_bitmatrix": want_k1,
+                          "rs_bitmatrix_crc": want_k2},
+              f"encode rows {step}, expected K2 {want_k2} and K1 {want_k1} "
+              f"(write_ec_files of the same .dat here)")
+        holders, ecc_checked = check_encoded_shards(env, dirs, reference)
+        out["shards_checked"] = 14 * len(vids)
+        out["ecc_entries_checked"] = ecc_checked
+        log(f"filer: encoded {vids} (full {full}) in {wall:.1f} s, "
+            f"{want_k2} K2 in the holders")
+
+        # -- 5. kill -9 the holder of the most shards of a volume ---------
+        def held(node):
+            return {v: sorted(s for s, n in holders[v].items() if n == node)
+                    for v in vids}
+        victim = max(vs_nodes, key=lambda n: (
+            max(len(s) for s in held(n).values()),
+            sum(len(s) for s in held(n).values())))
+        lost = {v: s for v, s in held(victim).items() if s}
+        out["killed"] = {"node": victim,
+                         "shards": {str(v): s for v, s in lost.items()},
+                         "most_of_one_volume": max(map(len, lost.values()))}
+        lost_sha = {(v, s): reference[v]["shards"][s]
+                    for v, ss in lost.items() for s in ss}
+        out["rss_mib"]["killed_volume_server"] = rss_mib(
+            vs_procs[victim].pid)
+        rows_kill = node_device_rows(murl, vs_nodes, time.time(), procs)
+        vs_procs[victim].kill()
+        vs_procs[victim].wait(30)
+        procs.remove(vs_procs[victim])
+        live = [n for n in vs_nodes if n != victim]
+        evs = {v: EcVolume(reference[v]["base"], vid=v, device=dev)
+               for v in vids}
+
+        def cache_doc():
+            return rpc.call(furl + "/debug/cache?fids=1", timeout=60.0)
+
+        # -- 6. every file through the filer: the first read after the kill
+        before = cache_doc()
+        resident = {fid for fid, _n in before["resident"]}
+        all_fids = [f for c in chunks.values() for f, _o, _s in c]
+        need = lost_intervals(evs, lost, all_fids)
+        need_hits = lost_intervals(evs, lost, [f for f in all_fids
+                                               if f in resident])
+        wall, lat = pool_run(sorted(files), read_equal, FILER_WRITERS)
+        after = cache_doc()
+        rows2 = node_device_rows(murl, live, time.time(), procs)
+        step = rows_delta({n: rows_kill[n] for n in live}, rows2)
+        k1 = vs_kernel_launches(step)
+        out["walls_s"]["degraded_read_all"] = wall
+        out["gb_s"]["degraded_read_all"] = written / wall / 1e9
+        out["degraded_read_ms"] = {"p50": pct_ms(lat, 50),
+                                   "p99": pct_ms(lat, 99), "reads": len(lat)}
+        hits = {"hit_bytes": after["chunk_cache"]["hit_bytes"]
+                - before["chunk_cache"]["hit_bytes"],
+                "resident_chunks_before": len(resident),
+                "lost_intervals_of_resident_chunks": need_hits}
+        out["launches"]["degraded_read_all"] = {
+            "volume_servers": k1, "lost_intervals_read": need,
+            "chunk_cache": hits}
+        check(set(step) <= {"reconstruct_kernel"}
+              and need - need_hits <= k1["rs_bitmatrix"] <= need,
+              f"degraded reads launched {step}; the layout needs {need} "
+              f"K1 10->1, {need_hits} of them on chunks the cache held")
+        check(k1["rs_bitmatrix"] > 0, "no read crossed a lost shard")
+        log(f"filer: read all after the kill in "
+            f"{out['walls_s']['degraded_read_all']:.1f} s, {k1} launches, "
+            f"{need} lost intervals")
+
+        # 300 ranges across chunk boundaries of multi-chunk files.
+        multi = sorted(p for p, c in chunks.items() if len(c) > 1)
+        rng = np.random.default_rng(args.seed + 14)
+        ranges = []
+        for _ in range(FILER_RANGES):
+            path = multi[int(rng.integers(len(multi)))]
+            cut = chunks[path][1 + int(rng.integers(len(chunks[path]) - 1))][1]
+            lo_ = max(0, cut - int(rng.integers(1, 256 << 10)))
+            hi_ = min(files[path][1], cut + int(rng.integers(1, 256 << 10))) - 1
+            ranges.append((path, lo_, hi_))
+        # Every chunk each range touches, once per range: a chunk the
+        # cache has evicted since an earlier range is fetched again.
+        range_fids = [f for path, lo_, hi_ in ranges
+                      for f, o, s in chunks[path] if o <= hi_ and o + s > lo_]
+
+        def read_range(item):
+            path, lo_, hi_ = item
+            off, _size = files[path]
+            status, body = rpc.call_status(
+                furl + path, headers={"Range": f"bytes={lo_}-{hi_}"},
+                timeout=600.0)
+            check(status == 206 and bytes(body)
+                  == bytes(blob[off + lo_:off + hi_ + 1]),
+                  f"range {lo_}-{hi_} of {path}: status {status}")
+
+        before = cache_doc()
+        wall, lat = pool_run(ranges, read_range, FILER_WRITERS)
+        after = cache_doc()
+        rows3 = node_device_rows(murl, live, time.time(), procs)
+        step = rows_delta(rows2, rows3)
+        k1 = vs_kernel_launches(step)
+        need = lost_intervals(evs, lost, range_fids)
+        out["range_read_ms"] = {"p50": pct_ms(lat, 50), "p99": pct_ms(lat, 99),
+                                "reads": len(lat)}
+        out["launches"]["range_reads"] = {
+            "volume_servers": k1,
+            "lost_intervals_of_chunks_touched_per_range": need,
+            "chunk_cache": {"hit_bytes": after["chunk_cache"]["hit_bytes"]
+                            - before["chunk_cache"]["hit_bytes"]}}
+        check(set(step) <= {"reconstruct_kernel"}
+              and k1["rs_bitmatrix"] <= need,
+              f"range reads launched {step}; the chunks they touch hold "
+              f"{need} lost intervals, counted once per range")
+
+        # -- 7. volume.fsck through CommandEnv.filer() --------------------
+        t0 = time.perf_counter()
+        fsck = run_command(env, "volume.fsck -orphans")
+        out["walls_s"]["fsck"] = time.perf_counter() - t0
+        out["fsck"] = fsck
+        check(fsck == f"checked {n_chunks} chunks, 0 missing, 0 orphans",
+              f"volume.fsck: {fsck[:2000]}")
+        rows4 = node_device_rows(murl, live, time.time(), procs)
+        out["launches"]["fsck"] = {
+            "volume_servers": vs_kernel_launches(rows_delta(rows3, rows4))}
+        log(f"filer: fsck in {out['walls_s']['fsck']:.1f} s: {fsck}")
+
+        # -- 8. ec.rebuild once the master has dropped the node, read all --
+        wait_for(lambda: victim not in {
+            n["url"] for n in env.data_nodes()}, "the dead-node sweep",
+            procs, timeout=120.0)
+        run_command(env, "lock")
+        t0 = time.perf_counter()
+        msg = run_command(env, "ec.rebuild")
+        out["walls_s"]["rebuild"] = time.perf_counter() - t0
+        run_command(env, "unlock")
+        for vid, ss in lost.items():
+            files_ = shard_files({n: dirs[n] for n in live}, vid)
+            check(sorted(files_) == list(range(14)),
+                  f"volume {vid} after rebuild: {sorted(files_)}; {msg}")
+            for sid in ss:
+                check(sha256_file(files_[sid][1]) == lost_sha[(vid, sid)],
+                      f"rebuilt shard {vid}.{sid} differs from its original")
+        rows5 = node_device_rows(murl, live, time.time(), procs)
+        out["launches"]["rebuild"] = {
+            "volume_servers": vs_kernel_launches(rows_delta(rows4, rows5))}
+        wall, _lat = pool_run(sorted(files), read_equal, FILER_WRITERS)
+        out["walls_s"]["read_after_rebuild"] = wall
+        out["gb_s"]["read_after_rebuild"] = written / wall / 1e9
+        rows6 = node_device_rows(murl, live, time.time(), procs)
+        out["launches"]["read_after_rebuild"] = {
+            "volume_servers": vs_kernel_launches(rows_delta(rows5, rows6))}
+        log(f"filer: rebuilt in {out['walls_s']['rebuild']:.1f} s, read all "
+            f"again in {wall:.1f} s")
+
+        # -- 9. fs.rm -r one directory; fsck once its deletes land -------
+        gone = [p for p in files if p.startswith(FILER_RM_DIR + "/")]
+        check(gone, f"nothing under {FILER_RM_DIR}")
+        t0 = time.perf_counter()
+        check(run_command(env, f"fs.rm -r {FILER_RM_DIR}")
+              == f"removed {FILER_RM_DIR}", f"fs.rm -r {FILER_RM_DIR}")
+        keep = {}
+        for path, c in chunks.items():
+            if path not in gone:
+                for fid, _o, _s in c:
+                    vid, key, _cookie = t.parse_file_id(fid)
+                    keep.setdefault(vid, set()).add(key)
+
+        def orphans() -> dict:
+            return {v: len(keys - keep.get(v, set())) for v, keys in
+                    VolumeFsck._live_keys(env).items()
+                    if keys - keep.get(v, set())}
+        try:
+            wait_for(lambda: not orphans(), f"the deletes under "
+                     f"{FILER_RM_DIR}", procs, timeout=120.0)
+        except RuntimeError as e:
+            raise RuntimeError(f"{e}: live needles no chunk names, by "
+                               f"volume: {orphans()}") from None
+        out["walls_s"]["rm_until_deletes_landed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fsck = run_command(env, "volume.fsck -orphans")
+        out["walls_s"]["fsck_after_rm"] = time.perf_counter() - t0
+        kept = n_chunks - sum(len(chunks[p]) for p in gone)
+        out["fsck_after_rm"] = fsck
+        check(fsck == f"checked {kept} chunks, 0 missing, 0 orphans",
+              f"volume.fsck after fs.rm: {fsck[:2000]}")
+        out["removed"] = {"dir": FILER_RM_DIR, "files": len(gone),
+                          "chunks": n_chunks - kept}
+
+        # -- every process's memory, then the totals ----------------------
+        out["rss_mib"]["filer"] = rss_mib(filer.pid)
+        out["rss_mib"]["master"] = rss_mib(master.pid)
+        for n in live:
+            out["rss_mib"][n] = rss_mib(vs_procs[n].pid)
+        out["rss_mib"]["chip_smoke"] = rss_mib(os.getpid())
+        totals = {"rs_bitmatrix": 0, "rs_bitmatrix_crc": 0}
+        for s in out["launches"].values():
+            for k in totals:
+                totals[k] += s["volume_servers"].get(k, 0)
+        out["launch_totals"] = totals
+        check(all(totals.values()), f"phase 12 launches {totals}")
+    finally:
+        for ev in evs.values():
+            ev.close()
+        if env is not None:
+            env.close()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"filer cluster: {json.dumps(out['walls_s'])}")
+    return out
+
+
 def entry(t, plain, lib, k_in, k_out, width, crc, volumes=1):
     """A timing row: kernel, plain and library ms, and the bound for
     `volumes` volumes of (k_in -> k_out, width)."""
@@ -3850,6 +4455,8 @@ def main() -> int:
                     help="the live cluster's volume size limit, MiB")
     ap.add_argument("--ha-mib", type=int, default=HA_LIMIT_MB,
                     help="the HA cluster's volume size limit, MiB")
+    ap.add_argument("--filer-mib", type=int, default=FILER_LIMIT_MB,
+                    help="the filer cluster's volume size limit, MiB")
     args = ap.parse_args()
 
     import torch
@@ -3885,6 +4492,7 @@ def main() -> int:
         cluster = phase_cluster(torch, dev, args)
         live = phase_live_cluster(torch, dev, args)
         ha = phase_ha_cluster(torch, dev, args)
+        filer = phase_filer_cluster(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -3930,6 +4538,12 @@ def main() -> int:
             "degraded_reads": (k1, at["degraded_reads"]["volume_servers"][k1],
                                "at_10_to_1_1mib"),
             "repair": (k2, at["repair"]["leader_master"][k2], "at_rebuild")})
+    at = filer["launches"]
+    filer["device_busy_share"] = busy_share(timings, filer["walls_s"], {
+        "encode": (k2, at["encode"]["volume_servers"][k2], None),
+        "degraded_read_all": (
+            k1, at["degraded_read_all"]["volume_servers"][k1],
+            "at_10_to_1_1mib")})
 
     kernels = [
         {"name": "rs_bitmatrix", "route": "cuda",
@@ -3942,7 +4556,8 @@ def main() -> int:
              for s in STORAGE_STEPS)
          + cluster["window_launches"]["rs_bitmatrix"]
          + live["launch_totals"]["rs_bitmatrix"]
-         + ha["launch_totals"]["rs_bitmatrix"],
+         + ha["launch_totals"]["rs_bitmatrix"]
+         + filer["launch_totals"]["rs_bitmatrix"],
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
@@ -3954,7 +4569,8 @@ def main() -> int:
              for s in STORAGE_STEPS)
          + cluster["window_launches"]["rs_bitmatrix_crc"]
          + live["launch_totals"]["rs_bitmatrix_crc"]
-         + ha["launch_totals"]["rs_bitmatrix_crc"],
+         + ha["launch_totals"]["rs_bitmatrix_crc"]
+         + filer["launch_totals"]["rs_bitmatrix_crc"],
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
     obs = phase_observability(torch, probe, main_path, batch, storage, timings)
@@ -3967,6 +4583,7 @@ def main() -> int:
     print(json.dumps({"control_plane": cluster}))
     print(json.dumps({"live_cluster": live}))
     print(json.dumps({"ha_cluster": ha}))
+    print(json.dumps({"filer_cluster": filer}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

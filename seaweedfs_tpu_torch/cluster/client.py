@@ -2,9 +2,12 @@
 volume-location cache — the wdclient + operation packages of the reference
 (weed/wdclient/masterclient.go vidMap, weed/operation/).
 
-Not ported yet (ROADMAP queue 1, slice 11): the gRPC master transport
-(`use_grpc=True` or WEED_INTERNAL_GRPC=1) rides on the wire-compatible
-`pb/` plane; asking for it raises NotImplementedError.
+`use_grpc=True` (or WEED_INTERNAL_GRPC=1) sends assign and lookup over
+the master's wire-compatible gRPC plane (pb/master_grpc.py), which needs
+grpcio and protobuf.  Unlike the reference, a master that is not the
+leader answers an assign there with the status UNAVAILABLE, not an
+in-message error, so the client rotates to the next seed as the JSON
+plane does on a 503.
 """
 
 from __future__ import annotations
@@ -16,7 +19,16 @@ import urllib.parse
 from ..core import types as t
 from ..netcore import splice as splice_mod
 from ..stats import flows as _flows
+from ..trace import current_traceparent
 from . import resilience, rpc
+
+
+def _grpc_trace_metadata():
+    """traceparent as gRPC metadata — the gRPC analog of the header the
+    HTTP plane injects in rpc._request (the server facade forwards it
+    to the JSON handlers)."""
+    tp = current_traceparent()
+    return (("traceparent", tp),) if tp else None
 
 
 class VidCache:
@@ -120,6 +132,69 @@ class ProxiedBody:
         return False
 
 
+class _GrpcMasterTransport:
+    """Master Assign/Lookup over the wire-compatible master_pb.Seaweed
+    gRPC plane (http port + 10000) — the transport a ported Go client
+    uses (wdclient dials gRPC, pb/grpc_client_server.go).  Selected by
+    WeedClient(use_grpc=True) or WEED_INTERNAL_GRPC=1, so the capstone
+    stack can run its internal master traffic through the gRPC facade
+    instead of the JSON plane (facade-drift canary).  One instance per
+    master seed; WeedClient rotates across them on failure
+    (tryAllMasters, like the JSON path)."""
+
+    def __init__(self, master_url: str):
+        import grpc
+
+        from ..pb import master_pb2
+        from ..pb.master_grpc import GRPC_PORT_DELTA
+        self.pb = master_pb2
+        hostport = master_url.split("://")[-1].rstrip("/")
+        host, _, port = hostport.rpartition(":")
+        if not host or not port.isdigit():
+            host, port = hostport, "80"  # port-less URL: http default
+        self.addr = f"{host}:{int(port) + GRPC_PORT_DELTA}"
+        self._chan = grpc.insecure_channel(self.addr)
+        svc = "/master_pb.Seaweed/"
+        self._assign = self._chan.unary_unary(
+            svc + "Assign",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=master_pb2.AssignResponse.FromString)
+        self._lookup = self._chan.unary_unary(
+            svc + "LookupVolume",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=(
+                master_pb2.LookupVolumeResponse.FromString))
+
+    def assign(self, count, collection, replication, ttl,
+               data_center) -> dict:
+        out = self._assign(self.pb.AssignRequest(
+            count=count, collection=collection,
+            replication=replication or "", ttl=ttl,
+            data_center=data_center), timeout=10,
+            wait_for_ready=True, metadata=_grpc_trace_metadata())
+        if out.error:
+            raise rpc.RpcError(500, out.error)
+        resp = {"fid": out.fid, "url": out.url,
+                "publicUrl": out.public_url, "count": out.count}
+        if out.auth:
+            resp["auth"] = out.auth
+        return resp
+
+    def lookup(self, vid: int) -> list[dict]:
+        out = self._lookup(self.pb.LookupVolumeRequest(
+            volume_ids=[str(vid)]), timeout=10, wait_for_ready=True,
+            metadata=_grpc_trace_metadata())
+        for entry in out.volume_id_locations:
+            if entry.error:
+                return []
+            return [{"url": loc.url, "publicUrl": loc.public_url}
+                    for loc in entry.locations]
+        return []
+
+    def close(self) -> None:
+        self._chan.close()
+
+
 class WeedClient:
     """Accepts one master URL or an HA seed list; master calls fail
     over across seeds like the reference's MasterClient
@@ -141,15 +216,44 @@ class WeedClient:
         self._watch_stop: threading.Event | None = None
         if use_grpc is None:
             use_grpc = os.environ.get("WEED_INTERNAL_GRPC") == "1"
-        if use_grpc:
-            raise NotImplementedError(
-                "the gRPC master transport needs the pb/ plane, which is "
-                "not ported yet (ROADMAP queue 1, slice 11)")
+        self._use_grpc = use_grpc
+        # Lazily dialed, one per master seed (HA failover rotates).
+        self._grpc_transports: dict[str, _GrpcMasterTransport] = {}
+
+    @property
+    def _grpc(self) -> "_GrpcMasterTransport | None":
+        """Transport for the CURRENT master seed (None when the JSON
+        plane is selected)."""
+        if not self._use_grpc:
+            return None
+        url = self.master_url
+        t = self._grpc_transports.get(url)
+        if t is None:
+            t = self._grpc_transports[url] = _GrpcMasterTransport(url)
+        return t
+
+    def _grpc_master_call(self, method: str, *args):
+        """Try each master seed once over gRPC, rotating past dead
+        ones — the gRPC analog of _master_call/tryAllMasters."""
+        last_err: Exception | None = None
+        for _ in range(len(self.masters)):
+            try:
+                return getattr(self._grpc, method)(*args)
+            except rpc.RpcError:
+                raise  # a real server-side answer
+            except Exception as e:  # noqa: BLE001 — dead/unreachable
+                last_err = e
+            self._master_idx = (self._master_idx + 1) % \
+                len(self.masters)
+        raise last_err or rpc.RpcError(503, "no master reachable")
 
     def close(self) -> None:
-        """Stop the location watch, if one runs."""
+        """Release transport resources (gRPC channels)."""
         if self._watch_stop is not None:
             self._watch_stop.set()
+        for t in self._grpc_transports.values():
+            t.close()
+        self._grpc_transports.clear()
 
     def start_location_watch(self):
         """Subscribe to the master's /cluster/watch push stream (the
@@ -231,6 +335,10 @@ class WeedClient:
             q.append(f"ttl={ttl}")
         if data_center:
             q.append(f"dataCenter={data_center}")
+        if self._use_grpc:
+            return self._grpc_master_call(
+                "assign", count, collection, replication, ttl,
+                data_center)
         return self._master_call("/dir/assign?" + "&".join(q))
 
     def lookup(self, vid: int, include_ec: bool = False) -> list[dict]:
@@ -241,6 +349,13 @@ class WeedClient:
         cached = self.cache.get(vid)
         if cached is not None:
             return cached
+        if self._use_grpc:
+            locs = self._grpc_master_call("lookup", vid)
+            if locs:
+                self.cache.put(vid, locs)
+                return locs
+            # EC-only / unknown volumes need the richer JSON answer
+            # (ecShards); fall through to the HTTP lookup.
         resp = self._master_call(f"/dir/lookup?volumeId={vid}")
         locs = resp.get("locations", [])
         if locs:
@@ -473,10 +588,14 @@ class WeedClient:
 
     def delete(self, fid: str) -> None:
         """Delete a needle, failing over across replicas exactly like
-        `_download_raw` does — any live replica fans the delete out to
-        its siblings, so the first dead server must not fail the op."""
+        `_download_raw` does — any live replica (or EC shard holder)
+        fans the delete out to its siblings, so the first dead server
+        must not fail the op."""
         vid, _key, _cookie = t.parse_file_id(fid)
-        locs = self.lookup(vid)
+        # An erasure-coded volume's shard holders take the delete too
+        # (the port's; the reference finds no locations for it, so a
+        # filer's chunk delete never lands on an EC volume).
+        locs = self.lookup(vid, include_ec=True)
         if not locs:
             raise rpc.RpcError(404, f"volume {vid} has no locations")
         # Secured cluster: fetch a delete token via lookup?fileId=

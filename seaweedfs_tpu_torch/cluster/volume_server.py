@@ -18,7 +18,7 @@ plain versions), resolved before any socket is bound, so a server asked
 for a card that is not there refuses to start.
 
 Not ported yet: the /query route's SELECT engine waits for ROADMAP
-queue 1 slice 11 and answers 501.
+queue 1 slice 11b and answers 501.
 """
 
 from __future__ import annotations
@@ -2119,6 +2119,8 @@ class VolumeServer:
         self.hot.write(vid, key, client, tenant)
         v = self.store.find_volume(vid)
         if v is None:
+            if vid in self.ec_volumes:
+                return self._delete_ec_needle(vid, key, path, query)
             raise rpc.RpcError(404, f"volume {vid} not on this server")
         fwd = self._forward_if_not_holder(path, query, b"", "DELETE",
                                           vid)
@@ -2133,6 +2135,34 @@ class VolumeServer:
         self.usage.note_request(tenant)
         if query.get("type") != "replicate":
             self._replicate(path, query, b"", "DELETE")
+        return {"size": freed}
+
+    def _delete_ec_needle(self, vid: int, key: int, path: str,
+                          query: dict) -> dict:
+        """DELETE of a needle on an erasure-coded volume (the port's;
+        the reference answers 404, so a deleted file's chunks on an EC
+        volume stay live): tombstone it in this holder's .ecx (and
+        .ecj), then in every other shard holder's, each of which keeps
+        its own .ecx.  A holder that does not answer keeps its copy
+        until it is rebuilt from a live one.  Answers the needle's
+        stored size, 0 when it was already gone."""
+        ev = self.ec_volumes[vid]
+        ev.refresh_index()
+        try:
+            _off, freed, _intervals = ev.locate_needle(key)
+        except NeedleNotFound:
+            freed = 0
+        ev.delete_needle(key)
+        if query.get("type") != "replicate":
+            me = self.url()
+            holders = {u for urls in self._ec_shard_locations(
+                vid, refresh=True).values() for u in urls} - {me}
+            for url in sorted(holders):
+                try:
+                    rpc.call(f"http://{url}{path}?type=replicate", "DELETE",
+                             headers=rpc.PRIORITY_LOW)
+                except Exception:  # noqa: BLE001 — dead holder, above
+                    pass
         return {"size": freed}
 
     def _replicate(self, path: str, query: dict, body: bytes,
@@ -2850,11 +2880,11 @@ class VolumeServer:
         server/volume_grpc_query.go): run a SELECT over one stored
         object's bytes.  Body: {fid, query, input_format, csv_header,
         csv_delimiter, output_format}.  The SELECT engine is not
-        ported yet (ROADMAP queue 1, slice 11): 501, never a fake
+        ported yet (ROADMAP queue 1, slice 11b): 501, never a fake
         answer."""
         raise rpc.RpcError(
             501, "the volume Query RPC's SELECT engine is not ported yet "
-                 "(ROADMAP queue 1, slice 11)")
+                 "(ROADMAP queue 1, slice 11b)")
 
     def _volume_file(self, query: dict, body: bytes):
         """Stream a whole .dat/.idx/.vif file — the VolumeCopy/CopyFile RPC

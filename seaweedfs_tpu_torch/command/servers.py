@@ -1,12 +1,15 @@
-"""Server-role subcommands of the port: `master`, `volume` and the
-all-in-one `server` (reference: weed/command/master.go, volume.go,
-server.go; seaweedfs_tpu/command/servers.py).
+"""Server-role subcommands of the port: `master`, `volume`, `filer` and
+the all-in-one `server` (reference: weed/command/master.go, volume.go,
+filer.go, server.go; seaweedfs_tpu/command/servers.py).
 
 Each starts its in-process server(s) and blocks until SIGINT/SIGTERM.
 `volume` and `server` take `-device=cuda|cpu` (default cuda): the device
 every EC coder of the volume server runs on; without a card, `cuda`
-refuses to start.  The filer, gateway and broker roles, and `server`'s
--filer/-s3/-webdav, wait for ROADMAP queue 1 slice 11.
+refuses to start.  Each role also serves its wire-compatible gRPC plane
+on its http port + 10000 where grpcio and protobuf are installed, and
+logs that the plane is off where they are not.  The S3, WebDAV and
+broker roles, and `server`'s -s3/-webdav, wait for ROADMAP queue 1
+slice 11b.
 
 Global flags every server role honors (parsed by the dispatcher,
 command/__init__.py, before the role starts):
@@ -102,18 +105,65 @@ def _wait_forever(servers: list, grace: float | None = None) -> int:
     return 0
 
 
-def _start_master_grpc(m, flags: Flags, ip: str) -> None:
-    """The wire-compatible gRPC plane (http port + 10000) is not ported
-    yet (ROADMAP queue 1, slice 11): log that it is off, as the
-    reference does when grpcio is missing, and serve HTTP alone."""
-    if flags.get_bool("grpc", True):
-        glog.warningf("gRPC plane disabled (not ported yet)")
-    return None
+# The port's gRPC servers, by module below the package (pb/ imports
+# grpcio and protobuf, so it is imported only when a plane starts).
+_PKG = __name__.split(".")[0]
 
 
-def _start_volume_grpc(vs, flags: Flags, ip: str) -> None:
-    """The volume server's gRPC plane waits for slice 11 too."""
-    return _start_master_grpc(vs, flags, ip)
+def _start_grpc_plane(server_obj, flags: Flags, ip: str,
+                      component: str, server_cls_path: str,
+                      allow_port_flag: bool = True):
+    """Start one wire-compatible gRPC plane on http port + 10000
+    (ParseServerToGrpcAddress convention; -grpc.port overrides on the
+    primary role, -grpc=false disables).  TLS rides the same
+    security.toml [grpc.<component>] section as the HTTPS plane; a
+    config mistake exits with a message like _security() does.  Without
+    grpcio or protobuf the plane is off, logged, and the role serves
+    HTTP alone, as the reference does."""
+    if not flags.get_bool("grpc", True):
+        return None
+    import importlib
+    try:
+        mod_name, cls_name = server_cls_path.rsplit(".", 1)
+        cls = getattr(importlib.import_module(f"{_PKG}.{mod_name}"),
+                      cls_name)
+    except ImportError as e:
+        glog.warningf("gRPC plane disabled (grpcio missing: %s)", e)
+        return None
+    from ..utils.security import (grpc_server_credentials,
+                                  security_configuration)
+    try:
+        creds = grpc_server_credentials(security_configuration(),
+                                        component)
+    except Exception as e:  # noqa: BLE001 — bad values / cert paths
+        print(f"security.toml [grpc.{component}]: {e}", file=sys.stderr)
+        raise SystemExit(2) from None
+    port = flags.get_int("grpc.port", 0) if allow_port_flag else 0
+    g = cls(server_obj, host=ip, port=port or None, credentials=creds)
+    g.start()
+    glog.infof("%s gRPC (%s) at %s", component, cls.SERVICE, g.addr())
+    return g
+
+
+def _start_master_grpc(m, flags: Flags, ip: str,
+                       allow_port_flag: bool = True):
+    return _start_grpc_plane(m, flags, ip, "master",
+                             "pb.master_grpc.MasterGrpcServer",
+                             allow_port_flag)
+
+
+def _start_filer_grpc(fs, flags: Flags, ip: str,
+                      allow_port_flag: bool = True):
+    return _start_grpc_plane(fs, flags, ip, "filer",
+                             "pb.filer_grpc.FilerGrpcServer",
+                             allow_port_flag)
+
+
+def _start_volume_grpc(vs, flags: Flags, ip: str,
+                       allow_port_flag: bool = True):
+    return _start_grpc_plane(vs, flags, ip, "volume",
+                             "pb.volume_grpc.VolumeGrpcServer",
+                             allow_port_flag)
 
 
 def _device_flag(flags: Flags):
@@ -295,17 +345,62 @@ def run_volume(flags: Flags, args: list[str]) -> int:
                          grace=flags.get_float("shutdown.grace", 30.0))
 
 
+def run_filer(flags: Flags, args: list[str]) -> int:
+    from ..filer.server import FilerServer
+    fs = FilerServer(
+        master_url=[_norm_master(u) for u in
+                    flags.get("master", "127.0.0.1:9333").split(",")],
+        host=flags.get("ip", "127.0.0.1"),
+        port=flags.get_int("port", 8888),
+        store_path=flags.get("dir") or None,
+        collection=flags.get("collection", ""),
+        replication=flags.get("defaultReplicaPlacement") or None,
+        metrics_port=flags.get_int("metricsPort", 0) or None,
+        ssl_context=_security("filer"),
+        cipher=flags.get_bool("encryptVolumeData", False),
+        transport=_transport_flag(flags),
+        # Front-door read/write knobs: -filer.cache.mb bounds the
+        # read-through chunk cache; -filer.pack.threshold (bytes, 0 =
+        # off) group-commits small uploads into shared needles;
+        # -filer.proxy.min (bytes, 0 = off) floors the direct
+        # volume→client relay for large single-chunk reads.
+        cache_mb=(int(flags.get("filer.cache.mb"))
+                  if flags.get("filer.cache.mb") != "" else None),
+        pack_threshold=flags.get_int("filer.pack.threshold", 0),
+        pack_max_bytes=flags.get_int("filer.pack.max", 1 << 20),
+        pack_linger=flags.get_float("filer.pack.linger", 0.008),
+        proxy_min=(int(flags.get("filer.proxy.min"))
+                   if flags.get("filer.proxy.min") != "" else None),
+        # Tenancy plane: -tenant.rules arms the filer's front-door QoS
+        # gate; -filer.cache.tenant.mb caps any one tenant's share of
+        # the chunk cache (0/absent = no per-tenant cap).
+        tenant_rules=flags.get("tenant.rules", ""),
+        cache_tenant_mb=(int(flags.get("filer.cache.tenant.mb"))
+                         if flags.get("filer.cache.tenant.mb") != ""
+                         else None),
+        # Metadata-HA plane: the heartbeat cadence to the master (the
+        # primary lease TTL is 3 pulses) and where the per-shard
+        # journals live (default: <-dir>.shards).
+        pulse_seconds=flags.get_float("pulseSeconds", 5.0),
+        ha_dir=flags.get("filer.ha.dir") or None,
+        **_slo_flags(flags))
+    fs.start()
+    glog.infof("filer serving at %s", fs.server.url())
+    g = _start_filer_grpc(fs, flags, flags.get("ip", "127.0.0.1"))
+    return _wait_forever([fs] + ([g] if g else []))
+
+
 def run_server(flags: Flags, args: list[str]) -> int:
-    """All-in-one: master + volume.  The filer, S3 and WebDAV roles
-    wait for slice 11: asking for them raises NotImplementedError
+    """All-in-one: master + volume [+ filer].  The S3 and WebDAV roles
+    wait for slice 11b: asking for them raises NotImplementedError
     before anything starts."""
     from ..cluster.master import MasterServer as Master
     from ..cluster.volume_server import VolumeServer
-    for role in ("filer", "s3", "webdav"):
+    for role in ("s3", "webdav"):
         if flags.get_bool(role, False):
             raise NotImplementedError(
                 f"server -{role}: the {role} role is not ported yet "
-                "(ROADMAP queue 1, slice 11)")
+                "(ROADMAP queue 1, slice 11b)")
     device = _device_flag(flags)
     servers: list = []
     ip = flags.get("ip", "127.0.0.1")
@@ -377,9 +472,25 @@ def run_server(flags: Flags, args: list[str]) -> int:
     g = _start_master_grpc(m, flags, ip)
     if g:
         servers.append(g)
-    vg = _start_volume_grpc(vs, flags, ip)
+    vg = _start_volume_grpc(vs, flags, ip, allow_port_flag=False)
     if vg:
         servers.append(vg)
+    if flags.get_bool("filer", False):
+        from ..filer.server import FilerServer
+        fs = FilerServer(master_url=m.server.url(), host=ip,
+                         port=flags.get_int("filer.port", 8888),
+                         store_path=flags.get("filer.dir") or None,
+                         transport=_transport_flag(flags),
+                         pack_threshold=flags.get_int(
+                             "filer.pack.threshold", 0),
+                         tenant_rules=flags.get("tenant.rules", ""),
+                         ssl_context=_security("filer"))
+        fs.start()
+        servers.append(fs)
+        glog.infof("filer at %s", fs.server.url())
+        fg = _start_filer_grpc(fs, flags, ip, allow_port_flag=False)
+        if fg:
+            servers.append(fg)
     return _wait_forever(servers,
                          grace=flags.get_float("shutdown.grace", 30.0))
 
@@ -414,11 +525,19 @@ register(Command("volume",
                  " [-replicate.collections=a,b] [-replicate.interval=0.5]"
                  " [-geo.cluster.id=A] [-replicate.compress]",
                  "start a volume server", run_volume))
+register(Command("filer", "filer -port=8888 -master=host:9333"
+                 " [-transport=aio|threads] [-filer.cache.mb=64]"
+                 " [-filer.pack.threshold=0(B)] [-filer.pack.max=1048576]"
+                 " [-filer.pack.linger=0.008] [-filer.proxy.min=262144]"
+                 " [-tenant.rules=tenants.txt]"
+                 " [-filer.cache.tenant.mb=0]"
+                 " [-pulseSeconds=5] [-filer.ha.dir=...]",
+                 "start a filer server", run_filer))
 register(Command("server",
-                 "server -dir=/data [-device=cuda|cpu]"
+                 "server -dir=/data [-device=cuda|cpu] [-filer=true]"
                  " [-transport=aio|threads]"
                  " [-lifecycle.rules=rules.txt]"
                  " [-tenant.rules=tenants.txt]"
                  " [-tier.cache.mb=64] [-tier.promote.hits=0]",
-                 "start master+volume in one process",
+                 "start master+volume(+filer) in one process",
                  run_server))

@@ -214,6 +214,17 @@ class EcVolume:
 
     # -- deletes -------------------------------------------------------------
 
+    def refresh_index(self) -> None:
+        """Reopen the .ecx when the file on disk is no longer the one
+        open here: a rebuild or a shard copy that brings this holder a
+        fresh .ecx replaces the file under the open handle, and a
+        tombstone written through the old handle would land in a file
+        nobody reads again."""
+        path = self.base_file_name + ".ecx"
+        if os.fstat(self._ecx.fileno()).st_ino != os.stat(path).st_ino:
+            old, self._ecx = self._ecx, open(path, "r+b")
+            old.close()
+
     def delete_needle(self, needle_id: int) -> None:
         """Tombstone the .ecx entry in place + append id to the .ecj."""
         entry, pos = self._search_ecx(needle_id)

@@ -287,3 +287,182 @@ class ReplicationLog:
                 self._f.close()
             except (OSError, ValueError):
                 pass
+
+
+# -- variable-length framing: the filer shard `.mlog` ------------------------
+
+# seq u64 | epoch u32 | len u32, then `len` payload bytes, then a
+# crc32c u32 over header+payload.
+_FRAME = struct.Struct(">QII")
+FRAME_HEADER_SIZE = _FRAME.size  # 16
+
+
+class FramedLog:
+    """Durable variable-length CRC-framed journal: the shard `.mlog`.
+
+    The fixed-width ReplicationLog above frames needle mutations, where
+    40 bytes fits; filer metadata events are JSON documents of arbitrary
+    size, so the shard journal frames each record with an explicit
+    length and covers header+payload with one crc32c.  Everything else
+    matches the `.rlog` stance: contiguous strictly-increasing seqs
+    (the follower idempotency key, with the epoch), torn-tail
+    truncation at open, a Watermark sidecar (`.map`) for the applied
+    seq on followers, and flush-on-append / fsync-on-demand so the
+    primary can batch the fsync right before the ack.
+
+    `epoch` rides in the frame header: after a failover the promoted
+    primary keeps the seq chain but bumps the epoch, so a record's
+    (epoch, seq) pair is globally unambiguous and a rejoining stale
+    primary can locate exactly where its history diverged.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self._lock = threading.RLock()
+        self.watermark = Watermark(path + ".map")
+        self.first_seq = 0
+        self.last_seq = 0
+        self.last_epoch = 0
+        self._offsets: list[int] = []  # offset of first_seq + i
+        if not os.path.exists(path):
+            with open(path, "wb"):
+                pass
+        self._f = open(path, "r+b")
+        self._recover()
+
+    def _recover(self) -> None:
+        """Sequential scan: index every whole, CRC-good record; the
+        first short or CRC-bad frame truncates the file there (a crash
+        mid-append costs at most the unacked tail, never the log)."""
+        data_end = os.fstat(self._f.fileno()).st_size
+        off = 0
+        while off + FRAME_HEADER_SIZE + _CRC.size <= data_end:
+            self._f.seek(off)
+            head = self._f.read(FRAME_HEADER_SIZE)
+            seq, epoch, length = _FRAME.unpack(head)
+            frame_end = off + FRAME_HEADER_SIZE + length + _CRC.size
+            if length > (1 << 30) or frame_end > data_end:
+                break  # torn or garbage length field
+            payload = self._f.read(length)
+            (crc,) = _CRC.unpack(self._f.read(_CRC.size))
+            if crc32c(head + payload) != crc:
+                break
+            if not self._offsets:
+                self.first_seq = seq
+            elif seq != self.last_seq + 1:
+                break  # seq discontinuity: treat the rest as rot
+            self._offsets.append(off)
+            self.last_seq = seq
+            self.last_epoch = epoch
+            off = frame_end
+        if off < data_end:
+            self._f.truncate(off)
+            self._f.flush()
+            os.fsync(self._f.fileno())
+        self._f.seek(off)
+
+    # -- write ---------------------------------------------------------------
+
+    def append(self, epoch: int, payload: dict,
+               seq: int | None = None) -> int:
+        """Frame + append one record; returns its seq.  Flushes to the
+        OS but does NOT fsync — call sync() at the commit point (before
+        the ack), so a storm of appends shares one barrier.
+
+        A primary omits `seq` (auto-assigned last+1); a follower passes
+        the primary's seq through verbatim, and a gap raises — the
+        chain must stay contiguous for seek-by-seq to stay honest."""
+        body = json.dumps(payload, separators=(",", ":")).encode()
+        with self._lock:
+            if seq is None:
+                seq = self.last_seq + 1
+            elif self._offsets and seq != self.last_seq + 1:
+                raise ValueError(
+                    f"seq gap: have {self.last_seq}, got {seq}")
+            head = _FRAME.pack(seq, epoch, len(body))
+            off = self._f.seek(0, os.SEEK_END)
+            self._f.write(head + body +
+                          _CRC.pack(crc32c(head + body)))
+            self._f.flush()
+            if not self._offsets:
+                self.first_seq = seq
+            self._offsets.append(off)
+            self.last_seq = seq
+            self.last_epoch = epoch
+            return seq
+
+    def sync(self) -> None:
+        with self._lock:
+            self._f.flush()
+            os.fsync(self._f.fileno())
+
+    # -- read ----------------------------------------------------------------
+
+    def read_from(self, start_seq: int, max_records: int = 1 << 30
+                  ) -> list[tuple[int, int, dict]]:
+        """Records with seq >= start_seq as (seq, epoch, payload)."""
+        out: list[tuple[int, int, dict]] = []
+        with self._lock:
+            if not self._offsets:
+                return out
+            start = max(start_seq, self.first_seq)
+            if start > self.last_seq:
+                return out
+            i = start - self.first_seq
+            end = os.fstat(self._f.fileno()).st_size
+            off = self._offsets[i]
+            buf = os.pread(self._f.fileno(), end - off, off)
+        pos = 0
+        while pos + FRAME_HEADER_SIZE + _CRC.size <= len(buf) and \
+                len(out) < max_records:
+            seq, epoch, length = _FRAME.unpack_from(buf, pos)
+            body = buf[pos + FRAME_HEADER_SIZE:
+                       pos + FRAME_HEADER_SIZE + length]
+            out.append((seq, epoch, json.loads(body)))
+            pos += FRAME_HEADER_SIZE + length + _CRC.size
+        return out
+
+    # -- repair (rejoin after a failed-over primacy) -------------------------
+
+    def truncate_from(self, seq: int) -> list[tuple[int, int, dict]]:
+        """Drop every record with seq >= `seq` and return them (newest
+        first) so the caller can reverse-apply the divergent suffix.
+        Used when a deposed primary rejoins: records it journaled but
+        never replicated were never acked, so unwinding them is safe —
+        the promoted primary's history is the truth."""
+        with self._lock:
+            if not self._offsets or seq > self.last_seq:
+                return []
+            seq = max(seq, self.first_seq)
+            dropped = self.read_from(seq)
+            i = seq - self.first_seq
+            cut = self._offsets[i]
+            self._f.truncate(cut)
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            del self._offsets[i:]
+            self.last_seq = seq - 1
+            if not self._offsets:
+                self.first_seq = 0
+                self.last_epoch = 0
+            else:
+                tail = self.read_from(self.last_seq)
+                self.last_epoch = tail[0][1] if tail else 0
+            return list(reversed(dropped))
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def status(self) -> dict:
+        with self._lock:
+            return {"first_seq": self.first_seq,
+                    "last_seq": self.last_seq,
+                    "last_epoch": self.last_epoch,
+                    "applied_seq": self.watermark.value}
+
+    def close(self) -> None:
+        with self._lock:
+            try:
+                self._f.flush()
+                self._f.close()
+            except (OSError, ValueError):
+                pass

@@ -4,9 +4,6 @@ Reference: weed/shell/ — the `weed shell` REPL with its `command` interface
 (shell/commands.go:35-42) and the ec.*/volume.* maintenance command suite.
 Commands here drive the cluster purely through the master/volume-server
 RPC surfaces, exactly as the reference shell drives gRPC.
-
-The port has every command module but the filer's: `fs.*` and
-`volume.fsck` (command_fs) wait for ROADMAP queue 1 slice 11.
 """
 
 from .commands import COMMANDS, Command, run_command  # noqa: F401
@@ -14,6 +11,7 @@ from .env import CommandEnv, ShellError  # noqa: F401
 
 # Importing the command modules registers them.
 from . import command_ec  # noqa: F401,E402
+from . import command_fs  # noqa: F401,E402
 from . import command_volume  # noqa: F401,E402
 from . import command_misc  # noqa: F401,E402
 from . import command_trace  # noqa: F401,E402

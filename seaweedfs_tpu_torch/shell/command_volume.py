@@ -189,17 +189,30 @@ class VolumeUnmount(Command):
 
 @register
 class VolumeFsck(Command):
+    """The port's volume.fsck differs from the reference's in two ways.
+    A chunk on an erasure-coded volume is probed on its shard holders
+    (any live one reconstructs the needle), where the reference finds
+    no `locations` for the volume and reports every such chunk missing.
+    `-orphans` adds the other direction of command_volume_fsck.go
+    (findExtraChunksInVolumeServers): live needles of every volume, by
+    its .idx or its .ecx, that no filer chunk names.  The reference
+    reads each file's metadata and probes each chunk one after another;
+    the port does both on FSCK_WORKERS threads, with the same report."""
+
     name = "volume.fsck"
-    help = ("volume.fsck [-v] [-crc] [-json] — verify every filer "
-            "chunk resolves to a live needle (command_volume_fsck.go's "
-            "findMissingChunksInVolumeServers direction); -crc HEADs "
+    FSCK_WORKERS = 8
+    help = ("volume.fsck [-v] [-crc] [-json] [-orphans] — verify every "
+            "filer chunk resolves to a live needle (command_volume_fsck.go's "
+            "findMissingChunksInVolumeServers direction; chunks on EC "
+            "volumes are probed on their shard holders); -crc HEADs "
             "EVERY replica and compares the stored needle CRC "
             "(X-Needle-Checksum) so divergent copies are caught "
             "without transferring bodies; -json emits a machine-"
             "readable report (per-volume per-needle checksum sets + "
             "verdict) whose `volumes` map is node-address-free, so two "
             "mirrored clusters converged exactly when their reports' "
-            "`volumes` maps are equal")
+            "`volumes` maps are equal; -orphans also counts live needles "
+            "that no filer chunk names")
 
     @staticmethod
     def _head_checksum(url: str, fid: str) -> str:
@@ -210,68 +223,179 @@ class VolumeFsck(Command):
         resp.read()
         return resp.headers.get("X-Needle-Checksum", "")
 
+    @classmethod
+    def _head_any(cls, urls: list[str], fid: str) -> str:
+        """HEAD on the first of `urls` that answers (EC shard holders:
+        a dead one stays listed until the master sweeps it)."""
+        err: Exception = LookupError("no locations")
+        for url in urls:
+            try:
+                return cls._head_checksum(url, fid)
+            except Exception as e:  # noqa: BLE001 — try the next holder
+                err = e
+        raise err
+
+    @staticmethod
+    def _ec_holders(env: CommandEnv, vid: int) -> list[str]:
+        return sorted({u for urls in env.ec_shard_locations(vid).values()
+                       for u in urls})
+
+    @staticmethod
+    def _live_keys(env: CommandEnv) -> dict[int, set[int]]:
+        """vid -> live needle ids of every volume in the cluster: a
+        normal volume's from one holder's .idx (the last entry of a key
+        wins), an EC volume's from a live holder's .ecx (deletes
+        tombstone it in place)."""
+        import io
+
+        from ..core import idx as _idx
+        from ..core import types as t
+
+        def keys(data: bytes, last_wins: bool) -> set[int]:
+            live: dict[int, bool] = {}
+            for e in _idx.iter_index(io.BytesIO(data)):
+                ok = e.offset != 0 and t.size_is_valid(e.size)
+                if last_wins or ok:
+                    live[e.key] = ok
+            return {k for k, ok in live.items() if ok}
+
+        normal: dict[int, str] = {}
+        ec: dict[int, list[str]] = {}
+        for n in env.data_nodes():
+            for v in n["volumes"]:
+                normal.setdefault(v["id"], n["url"])
+            for e in n["ec_shards"]:
+                ec.setdefault(e["id"], []).append(n["url"])
+        out: dict[int, set[int]] = {}
+        for vid, url in normal.items():
+            data = rpc.call(f"http://{url}/admin/volume_file?"
+                            f"volume={vid}&ext=.idx", timeout=60)
+            out[vid] = keys(bytes(data), True)
+        for vid, urls in ec.items():
+            if vid in out:
+                continue
+            err: Exception | None = None
+            for url in sorted(urls):
+                try:
+                    data = rpc.call(f"http://{url}/admin/ec/shard_file?"
+                                    f"volume={vid}&ext=.ecx", timeout=60)
+                    out[vid] = keys(bytes(data), False)
+                    break
+                except Exception as e:  # noqa: BLE001 — next holder
+                    err = e
+            else:
+                raise ShellError(f"volume {vid}: no holder serves .ecx: "
+                                 f"{err}")
+        return out
+
     def do(self, args: list[str], env: CommandEnv) -> str:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ..core import types as t
         flags, _ = self.parse_flags(args)
         crc_mode = "crc" in flags
         json_mode = "json" in flags
+        orphans_mode = "orphans" in flags
         proxy = env.filer()
-        checked, missing, diverged = 0, [], []
-        # vid -> fid -> sorted distinct replica checksums.  Keyed by
-        # needle, not node, so two clusters' reports compare directly.
-        vols: dict[str, dict[str, list[str]]] = {}
+        files: list[str] = []
         stack = ["/"]
         while stack:
             d = stack.pop()
             for e in proxy.list_all(d):
                 if e["is_directory"]:
                     stack.append(e["FullPath"])
-                    continue
-                meta = proxy.meta(e["FullPath"])
-                for chunk in (meta or {}).get("chunks", []):
-                    checked += 1
-                    fid = chunk["file_id"]
-                    try:
-                        vid = int(fid.split(",")[0])
-                        locs = env.volume_locations(vid)
-                        if not locs:
-                            raise LookupError("no locations")
-                        if not crc_mode and not json_mode:
-                            self._head_checksum(locs[0], fid)
-                            continue
-                        crcs = {}
-                        for url in locs if crc_mode else locs[:1]:
-                            crcs[url] = self._head_checksum(url, fid)
-                        vols.setdefault(str(vid), {})[fid] = \
-                            sorted(set(crcs.values()))
-                        if len(set(crcs.values())) > 1:
-                            diverged.append(
-                                (e["FullPath"], fid,
-                                 ", ".join(f"{u}={c or '?'}"
-                                           for u, c in
-                                           sorted(crcs.items()))))
-                    except Exception as err:  # noqa: BLE001
-                        missing.append((e["FullPath"], fid, str(err)))
+                else:
+                    files.append(e["FullPath"])
+        # The metadata reads and the needle probes run on FSCK_WORKERS
+        # threads; the report keeps the walk's order.  Each volume is
+        # looked up once per run.
+        holders: dict[int, tuple[list[str], list[str]]] = {}
+
+        def locations(vid: int) -> tuple[list[str], list[str]]:
+            if vid not in holders:
+                locs = env.volume_locations(vid)
+                holders[vid] = (locs, locs or self._ec_holders(env, vid))
+            return holders[vid]
+
+        def probe(item: tuple[str, str]):
+            """(vid, key, {url: crc}) or the error's text."""
+            _path, fid = item
+            try:
+                vid, key, _cookie = t.parse_file_id(fid)
+                locs, found = locations(vid)
+                if not found:
+                    raise LookupError("no locations")
+                if not crc_mode and not json_mode:
+                    self._head_any(found, fid)
+                    return vid, key, None
+                if crc_mode and locs:
+                    return vid, key, {url: self._head_checksum(url, fid)
+                                      for url in locs}
+                return vid, key, {"": self._head_any(found, fid)}
+            except Exception as err:  # noqa: BLE001
+                return str(err)
+
+        with ThreadPoolExecutor(self.FSCK_WORKERS) as pool:
+            metas = list(pool.map(proxy.meta, files))
+            items = [(path, chunk["file_id"])
+                     for path, meta in zip(files, metas)
+                     for chunk in (meta or {}).get("chunks", [])]
+            results = list(pool.map(probe, items))
+        checked, missing, diverged = len(items), [], []
+        # vid -> fid -> sorted distinct replica checksums.  Keyed by
+        # needle, not node, so two clusters' reports compare directly.
+        vols: dict[str, dict[str, list[str]]] = {}
+        named: dict[int, set[int]] = {}  # vid -> needle ids chunks name
+        for (path, fid), got in zip(items, results):
+            if isinstance(got, str):
+                missing.append((path, fid, got))
+                try:
+                    vid, key, _cookie = t.parse_file_id(fid)
+                    named.setdefault(vid, set()).add(key)
+                except ValueError:
+                    pass
+                continue
+            vid, key, crcs = got
+            named.setdefault(vid, set()).add(key)
+            if crcs is None:
+                continue
+            vols.setdefault(str(vid), {})[fid] = sorted(set(crcs.values()))
+            if len(set(crcs.values())) > 1:
+                diverged.append(
+                    (path, fid, ", ".join(f"{u}={c or '?'}"
+                                          for u, c in sorted(crcs.items()))))
+        orphans: list[tuple[int, int]] = []
+        if orphans_mode:
+            for vid, keys in sorted(self._live_keys(env).items()):
+                orphans += [(vid, k) for k in
+                            sorted(keys - named.get(vid, set()))]
         if json_mode:
             import json as _json
             verdict = "missing" if missing else \
                 "divergent" if diverged else "ok"
-            return _json.dumps(
-                {"verdict": verdict, "checked": checked,
-                 "missing": [{"path": p, "fid": f, "error": err}
-                             for p, f, err in missing],
-                 "diverged": [{"path": p, "fid": f, "detail": d}
-                              for p, f, d in diverged],
-                 "volumes": {vid: dict(sorted(fids.items()))
-                             for vid, fids in sorted(vols.items())}},
-                indent=1, sort_keys=True)
+            doc = {"verdict": verdict, "checked": checked,
+                   "missing": [{"path": p, "fid": f, "error": err}
+                               for p, f, err in missing],
+                   "diverged": [{"path": p, "fid": f, "detail": d}
+                                for p, f, d in diverged],
+                   "volumes": {vid: dict(sorted(fids.items()))
+                               for vid, fids in sorted(vols.items())}}
+            if orphans_mode:
+                doc["orphans"] = [{"volume": v, "needle": f"{k:x}"}
+                                  for v, k in orphans]
+            return _json.dumps(doc, indent=1, sort_keys=True)
         lines = [f"checked {checked} chunks, {len(missing)} missing"
                  + (f", {len(diverged)} replica CRC mismatches"
-                    if crc_mode else "")]
+                    if crc_mode else "")
+                 + (f", {len(orphans)} orphans" if orphans_mode else "")]
         if "v" in flags or missing:
             lines += [f"  MISSING {path} chunk {fid}: {err}"
                       for path, fid, err in missing[:50]]
         lines += [f"  CRC MISMATCH {path} chunk {fid}: {detail}"
                   for path, fid, detail in diverged[:50]]
+        if "v" in flags:
+            lines += [f"  ORPHAN volume {v} needle {k:x}"
+                      for v, k in orphans[:50]]
         return "\n".join(lines)
 
 

@@ -35,10 +35,13 @@ class CommandEnv:
         self.filer_url = filer_url.rstrip("/") if filer_url else None
 
     def filer(self):
-        """FilerProxy for fs.* commands (shell -filer=host:8888): the
-        filer is not ported yet (ROADMAP queue 1, slice 11)."""
-        raise NotImplementedError(
-            "the filer is not ported yet (ROADMAP queue 1, slice 11)")
+        """FilerProxy for fs.* commands (shell -filer=host:8888)."""
+        if self.filer_url is None:
+            raise ShellError(
+                "no filer configured — start the shell with "
+                "-filer=host:8888")
+        from ..filer.client import FilerProxy
+        return FilerProxy(self.filer_url)
 
     def mesh(self):
         """The batch mesh of the -batch EC paths: every visible card for

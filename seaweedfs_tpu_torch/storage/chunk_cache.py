@@ -161,6 +161,12 @@ class FilerChunkCache:
         with self._lock:
             return self._bytes
 
+    def resident(self) -> list[list]:
+        """[file id, bytes] of every cached chunk, least recently used
+        first (the filer's /debug/cache?fids=1)."""
+        with self._lock:
+            return [[fid, len(data)] for fid, data in self._chunks.items()]
+
     def stats(self) -> dict:
         with self._lock:
             chunks = len(self._chunks)

@@ -16,8 +16,7 @@ set_client_ssl_context), and every inter-server URL is upgraded to
 https by the transport — addresses stay `host:port`, the scheme is the
 dial option, as in grpc_client_server.go.  One deliberate improvement:
 the reference's client sets InsecureSkipVerify (tls.go:70); ours
-verifies the server chain against the same CA.  The gRPC credential
-helpers come with the port's gRPC plane (ROADMAP queue 1, slice 11).
+verifies the server chain against the same CA.
 """
 
 from __future__ import annotations
@@ -220,3 +219,25 @@ def install_cluster_tls(cfg) -> bool:
     rpc.set_client_ssl_context(ctx, force_https=True)
     return True
 
+
+def grpc_server_credentials(cfg, component: str):
+    """security.toml `[grpc.<component>]` -> grpc.ServerCredentials, or
+    None when no cert/key is configured — the same parsed/validated
+    config as the HTTPS plane (server_tls_config), so both planes of
+    one component share one TLS story."""
+    parsed = server_tls_config(cfg, component)
+    if parsed is None:
+        return None
+    cert, key, ca, mode = parsed
+    import grpc
+    with open(key, "rb") as f:
+        key_pem = f.read()
+    with open(cert, "rb") as f:
+        cert_pem = f.read()
+    root = None
+    if ca:
+        with open(ca, "rb") as f:
+            root = f.read()
+    return grpc.ssl_server_credentials(
+        [(key_pem, cert_pem)], root_certificates=root,
+        require_client_auth=(mode == "require"))

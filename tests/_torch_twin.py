@@ -1,0 +1,539 @@
+"""Every case of a JAX-package test file, run in both packages and
+compared: the port's counterparts of tests/test_filer*.py,
+test_metaha.py, test_*_grpc.py, test_shell_fs_security.py and
+test_configure_notify.py.
+
+`TwinFile("test_filer.py")` reads that file and compiles two copies of
+it: the JAX package's as written, and the port's, with every name of
+the JAX package (`seaweedfs_tpu`) replaced by the port's
+(`seaweedfs_tpu_torch`).  In both copies every `assert` is rewritten to
+record what it compares before it asserts as before, and pytest's
+fixture and parametrize decorators are replaced by markers this module
+resolves itself.  `cases` lists every case pytest would collect from the
+file (a test over a parametrised fixture or under `parametrize` gives
+one case per value, as pytest's ids name them); `run(case_id, tmp_path)`
+runs the case in the JAX package's copy and then in the port's, each in
+a directory of its own with `random` and numpy's global generator
+seeded alike, requires both to pass, and requires the two records to be
+equal, assert by assert.
+
+What an assert records: for `a == b` and `a != b` both operands; for
+`a in b` and `a not in b` the left operand and the outcome; for any other
+test its truth value.  Fixtures: `tmp_path`, `tmp_path_factory`,
+`monkeypatch`, `request` (`param`, `addfinalizer`) and the file's own,
+each built anew for each case and package (a module-scoped fixture too).
+A test file that imports another (`from test_filer_server import ...`)
+gets that file's copy of the same package.  In the port's copy the
+volume server and the shell default to `device="cpu"`: the port's
+default is the card, which this host lacks.  Ids drawn from
+`secrets.token_hex` (hard-link ids) come from the seeded `random`
+during a run, alike in both packages.
+
+Masked before the records are compared (the fields that must differ
+between two live runs): `host:port` of 127.0.0.1, localhost and 0.0.0.0
+(each package's servers bind their own ports); the run's directory;
+the package name itself; memory addresses in reprs; floats between 1e9
+and 1e11 and ints of 1e15 and more (wall-clock stamps in s, µs and ns);
+the class of an object that is not a plain value, which is recorded
+by its class name only; and a gRPC error's debug string (its status
+code and details are kept).  Bytes and strings longer than 4 KiB are
+recorded by length and sha256.
+"""
+
+from __future__ import annotations
+
+import ast
+import dataclasses
+import hashlib
+import inspect
+import itertools
+import operator
+import os
+import random
+import re
+import secrets
+import sys
+import types
+
+import numpy as np
+import pytest
+
+from _torch_cluster import EPOCH_S, PACKAGES, PORT, Clock, \
+    _reset_port_globals
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+_REF_NAME = re.compile(r"\bseaweedfs_tpu\b")
+_HOSTPORT = re.compile(r"(127\.0\.0\.1|localhost|0\.0\.0\.0):\d+")
+_ADDR = re.compile(r"0x[0-9a-fA-F]{6,}")
+_CMP = {"Eq": operator.eq, "NotEq": operator.ne, "Lt": operator.lt,
+        "LtE": operator.le, "Gt": operator.gt, "GtE": operator.ge,
+        "Is": operator.is_, "IsNot": operator.is_not,
+        "In": lambda a, b: a in b, "NotIn": lambda a, b: a not in b}
+BIG = 4096
+
+
+class Recorder:
+    """The records of one run, and the masks of its directory."""
+
+    def __init__(self):
+        self.records: list = []
+        self.roots: list[str] = []
+
+    def text(self, s: str) -> str:
+        for root in self.roots:
+            s = s.replace(root, "<tmp>")
+        s = s.replace("seaweedfs_tpu_torch", "<pkg>").replace(
+            "seaweedfs_tpu", "<pkg>")
+        s = _HOSTPORT.sub("<host:port>", s)
+        return _ADDR.sub("<addr>", s)
+
+    def norm(self, v, depth: int = 0):
+        if depth > 12:
+            return "<deep>"
+        if v is None or isinstance(v, bool):
+            return v
+        if isinstance(v, int):
+            return "<stamp>" if abs(v) >= 10 ** 15 else v
+        if isinstance(v, float):
+            return "<stamp>" if 1e9 <= abs(v) <= 1e11 else v
+        if isinstance(v, str):
+            return self._big(self.text(v))
+        if isinstance(v, (bytes, bytearray, memoryview)):
+            b = bytes(v)
+            if len(b) > BIG:
+                return ("bytes", len(b), hashlib.sha256(b).hexdigest())
+            return ("bytes", self.text(b.decode("latin-1")))
+        if isinstance(v, dict):
+            return {repr(self.norm(k, depth + 1)): self.norm(x, depth + 1)
+                    for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [self.norm(x, depth + 1) for x in v]
+        if isinstance(v, (set, frozenset)):
+            return sorted((self.norm(x, depth + 1) for x in v), key=repr)
+        if isinstance(v, np.ndarray):
+            return ("ndarray", str(v.dtype), list(v.shape),
+                    hashlib.sha256(np.ascontiguousarray(v).tobytes())
+                    .hexdigest())
+        if isinstance(v, np.generic):
+            return self.norm(v.item(), depth)
+        if isinstance(v, BaseException):
+            if callable(getattr(v, "code", None)) \
+                    and callable(getattr(v, "details", None)):
+                # A grpc.RpcError: its status, not the debug string
+                # (whose field order varies from call to call).
+                return ("raised", "grpc", str(v.code()),
+                        self.text(v.details() or ""))
+            return ("raised", type(v).__name__, self.text(str(v)))
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return {"__type__": type(v).__name__, **{
+                f.name: self.norm(getattr(v, f.name), depth + 1)
+                for f in dataclasses.fields(v)}}
+        if isinstance(v, type):
+            return ("class", v.__name__)
+        return ("object", type(v).__name__)
+
+    def _big(self, s: str):
+        if len(s) > BIG:
+            return ("str", len(s), hashlib.sha256(s.encode()).hexdigest())
+        return s
+
+    def compare(self, op: str, a, b) -> bool:
+        ok = _CMP[op](a, b)
+        if op in ("Eq", "NotEq"):
+            self.records.append((op, self.norm(a), self.norm(b)))
+        elif op in ("In", "NotIn"):
+            self.records.append((op, self.norm(a), bool(ok)))
+        else:
+            self.records.append((op, bool(ok)))
+        return ok
+
+    def truth(self, v) -> bool:
+        self.records.append(("truth", bool(v)))
+        return v
+
+
+class _Raises:
+    """`with pytest.raises(...)` that records what was raised."""
+
+    def __init__(self, rec: Recorder, cm):
+        self.rec, self.cm = rec, cm
+
+    def __enter__(self):
+        self.info = self.cm.__enter__()
+        return self.info
+
+    def __exit__(self, *exc):
+        out = self.cm.__exit__(*exc)
+        self.rec.records.append(("raises", self.rec.norm(exc[1])))
+        return out
+
+
+class _Pytest:
+    """The twin module's `pytest`: the real module, but `raises` as a
+    context manager records the exception it caught."""
+
+    def __init__(self, rec: Recorder):
+        self._rec = rec
+
+    def raises(self, *args, **kw):
+        cm = pytest.raises(*args, **kw)
+        return cm if len(args) > 1 else _Raises(self._rec, cm)
+
+    def __getattr__(self, name):
+        return getattr(pytest, name)
+
+
+def _fixture_marker(*args, **kw):
+    """pytest.fixture's stand-in: marks the function with its
+    arguments (params, autouse); scope is ignored (every case builds
+    its fixtures anew)."""
+    def mark(fn):
+        fn._twin_fixture = {"params": kw.get("params"),
+                            "ids": kw.get("ids"),
+                            "autouse": kw.get("autouse", False)}
+        return fn
+    if args and callable(args[0]) and not kw:
+        return mark(args[0])
+    return mark
+
+
+def _parametrize_marker(argnames, argvalues, ids=None, **_kw):
+    def mark(fn):
+        names = [n.strip() for n in argnames.split(",")] \
+            if isinstance(argnames, str) else list(argnames)
+        fn.__dict__.setdefault("_twin_parametrize", []).insert(
+            0, (names, list(argvalues), ids))
+        return fn
+    return mark
+
+
+class _Rewrite(ast.NodeTransformer):
+    """asserts -> recorder calls; fixture/parametrize decorators ->
+    markers; `from test_x import a` -> the twin copy of test_x."""
+
+    def visit_Assert(self, node):
+        self.generic_visit(node)
+        t = node.test
+        rec = ast.Name("__twin_rec__", ast.Load())
+        if isinstance(t, ast.Compare) and len(t.ops) == 1:
+            call = ast.Call(ast.Attribute(rec, "compare", ast.Load()),
+                            [ast.Constant(type(t.ops[0]).__name__),
+                             t.left, t.comparators[0]], [])
+        else:
+            call = ast.Call(ast.Attribute(rec, "truth", ast.Load()),
+                            [t], [])
+        node.test = call
+        return node
+
+    def _decorators(self, node):
+        out = []
+        for d in node.decorator_list:
+            src = ast.unparse(d)
+            if src.startswith("pytest.fixture"):
+                out.append(ast.Name("__twin_fixture__", ast.Load())
+                           if not isinstance(d, ast.Call) else
+                           ast.Call(ast.Name("__twin_fixture__", ast.Load()),
+                                    d.args, d.keywords))
+            elif src.startswith("pytest.mark.parametrize"):
+                out.append(ast.Call(ast.Name("__twin_parametrize__",
+                                             ast.Load()), d.args, d.keywords))
+            elif src.startswith("pytest.mark."):
+                continue
+            else:
+                out.append(d)
+        node.decorator_list = out
+
+    def visit_FunctionDef(self, node):
+        self._decorators(node)
+        self.generic_visit(node)
+        return node
+
+    def visit_ClassDef(self, node):
+        self._decorators(node)
+        self.generic_visit(node)
+        return node
+
+    def visit_ImportFrom(self, node):
+        if node.module and node.module.startswith("test_"):
+            return [ast.Assign(
+                [ast.Name(a.asname or a.name, ast.Store())],
+                ast.Attribute(ast.Call(ast.Name("__twin_mod__", ast.Load()),
+                                       [ast.Constant(node.module)], []),
+                              a.name, ast.Load()))
+                for a in node.names]
+        return node
+
+
+_MODULES: dict = {}
+
+
+def load(name: str, pkg: str) -> types.ModuleType:
+    """The twin copy of tests/<name>.py for `pkg`, compiled once per
+    process."""
+    key = (name, pkg)
+    if key in _MODULES:
+        return _MODULES[key]
+    with open(os.path.join(TESTS, name + ".py")) as f:
+        src = f.read()
+    if pkg == PORT:
+        src = _REF_NAME.sub(PORT, src)
+    tree = ast.fix_missing_locations(_Rewrite().visit(ast.parse(src)))
+    mod = types.ModuleType(f"_twin_{pkg}_{name}")
+    mod.__file__ = os.path.join(TESTS, name + ".py")
+    mod.__dict__.update(__twin_rec__=Recorder(),
+                        __twin_fixture__=_fixture_marker,
+                        __twin_parametrize__=_parametrize_marker,
+                        __twin_mod__=lambda n: load(n, pkg))
+    sys.modules[mod.__name__] = mod
+    _MODULES[key] = mod
+    exec(compile(tree, mod.__file__, "exec"), mod.__dict__)
+    if "pytest" in mod.__dict__:
+        mod.pytest = _Pytest(mod.__twin_rec__)
+    return mod
+
+
+@dataclasses.dataclass
+class Case:
+    id: str
+    cls: str | None
+    fn: str
+    fixture_params: dict      # fixture name -> index into its params
+    call_params: dict         # argument name -> index into its values
+
+
+def _fixtures(mod, cls=None) -> dict:
+    out = {n: f for n, f in vars(mod).items()
+           if callable(f) and hasattr(f, "_twin_fixture")}
+    if cls is not None:
+        out.update({n: f for n, f in vars(cls).items()
+                    if callable(f) and hasattr(f, "_twin_fixture")})
+    return out
+
+
+def _closure(fn, fixtures: dict, seen=None) -> list[str]:
+    """Fixture names `fn` needs, transitively, autouse ones first."""
+    seen = [] if seen is None else seen
+    names = [n for n, f in fixtures.items() if f._twin_fixture["autouse"]]
+    names += [p for p in inspect.signature(fn).parameters
+              if p not in ("self", "request")]
+    for n in names:
+        if n in fixtures and n not in seen:
+            seen.append(n)
+            _closure(fixtures[n], fixtures, seen)
+    return seen
+
+
+def _id(value, i: int, ids) -> str:
+    if ids is not None:
+        return str(ids[i])
+    if isinstance(value, (str, int, float, bool)) or value is None:
+        return str(value)
+    return f"{i}"
+
+
+class TwinFile:
+    """The cases of one JAX-package test file, runnable in both
+    packages.  `clocked` names modules below the package whose `time`
+    is pinned to one instant in each package's run (where the bytes an
+    assert compares carry the wall clock, such as a needle's append
+    stamp)."""
+
+    def __init__(self, name: str, clocked: tuple = ()):
+        self.name = name.removesuffix(".py")
+        self.clocked = clocked
+        self.ref = load(self.name, PACKAGES[0])
+        self.cases: dict[str, Case] = {}
+        for attr, obj in vars(self.ref).items():
+            if attr.startswith("test") and inspect.isfunction(obj) \
+                    and obj.__module__ == self.ref.__name__:
+                self._add(None, attr, obj)
+            elif attr.startswith("Test") and inspect.isclass(obj) \
+                    and obj.__module__ == self.ref.__name__:
+                for m, fn in vars(obj).items():
+                    if m.startswith("test") and inspect.isfunction(fn):
+                        self._add(obj, m, fn)
+
+    def _add(self, cls, name: str, fn) -> None:
+        fixtures = _fixtures(self.ref, cls)
+        axes = []  # (kind, name, values, ids)
+        for f in _closure(fn, fixtures):
+            p = fixtures[f]._twin_fixture
+            if p["params"] is not None:
+                axes.append(("fixture", f, p["params"], p["ids"]))
+        for names, values, ids in getattr(fn, "_twin_parametrize", []):
+            axes.append(("call", tuple(names), values, ids))
+        prefix = f"{cls.__name__}::{name}" if cls else name
+        for combo in itertools.product(*[range(len(a[2])) for a in axes]):
+            parts = [_id(a[2][i], i, a[3]) for a, i in zip(axes, combo)]
+            cid = prefix + (f"[{'-'.join(parts)}]" if parts else "")
+            self.cases[cid] = Case(
+                cid, cls.__name__ if cls else None, name,
+                {a[1]: i for a, i in zip(axes, combo) if a[0] == "fixture"},
+                {a[1]: i for a, i in zip(axes, combo) if a[0] == "call"})
+
+    def ids(self, exclude=()) -> list[str]:
+        return [c for c in self.cases if c not in exclude]
+
+    def run(self, case_id: str, tmp_path, seed: int = 0) -> list:
+        """The case in each package; both must pass and record alike.
+        Returns the port's records."""
+        case = self.cases[case_id]
+        out = []
+        for pkg in PACKAGES:
+            root = tmp_path / ("port" if pkg == PORT else "ref")
+            root.mkdir()
+            if pkg == PORT:
+                _reset_port_globals()
+            random.seed(seed)
+            np.random.seed(seed)
+            out.append(_run_one(load(self.name, pkg), case, pkg, root,
+                                self.clocked))
+        ref, port = out
+        for i, (a, b) in enumerate(zip(ref, port)):
+            assert a == b, (f"assert #{i} of {case_id} records differently:"
+                            f"\nJAX package: {a!r}\nport:        {b!r}")
+        assert len(ref) == len(port), (len(ref), len(port))
+        assert ref, f"{case_id} recorded no assert"
+        return port
+
+
+class _Request:
+    def __init__(self, param, finalizers: list):
+        self.param = param
+        self._finalizers = finalizers
+
+    def addfinalizer(self, fn) -> None:
+        self._finalizers.append(fn)
+
+
+class _Factory:
+    """tmp_path_factory's stand-in: directories below the run's root."""
+
+    def __init__(self, root):
+        self.root = root
+        self.n = 0
+
+    def mktemp(self, name: str, numbered: bool = True):
+        self.n += 1
+        d = self.root / (f"{name}{self.n}" if numbered else name)
+        d.mkdir()
+        return d
+
+    def getbasetemp(self):
+        return self.root
+
+
+def _cpu_defaults(mp: pytest.MonkeyPatch, pkg: str) -> None:
+    """The port's volume server and shell default to the card; the runs
+    here have none, so their `device` default becomes "cpu"."""
+    if pkg != PORT:
+        return
+    for modname, cls in (("cluster.volume_server", "VolumeServer"),
+                         ("shell.env", "CommandEnv")):
+        init = getattr(sys.modules.get(f"{PORT}.{modname}") or
+                       __import__(f"{PORT}.{modname}", fromlist=[cls]),
+                       cls).__init__
+        sig = inspect.signature(init)
+        names = [p.name for p in sig.parameters.values()
+                 if p.default is not inspect.Parameter.empty
+                 and p.kind != p.KEYWORD_ONLY]
+        if "device" in names:
+            d = list(init.__defaults__)
+            d[names.index("device")] = "cpu"
+            mp.setattr(init, "__defaults__", tuple(d))
+        else:
+            kw = dict(init.__kwdefaults__)
+            kw["device"] = "cpu"
+            mp.setattr(init, "__kwdefaults__", kw)
+
+
+def _seeded_token_hex(nbytes: int = 32) -> str:
+    return random.getrandbits(8 * nbytes).to_bytes(nbytes, "big").hex()
+
+
+def _run_one(mod, case: Case, pkg: str, root, clocked=()) -> list:
+    rec = mod.__twin_rec__
+    rec.records = []
+    rec.roots = [str(root)]
+    # Twin modules imported by this one record into the same run.
+    for (name, p), m in _MODULES.items():
+        if p == pkg:
+            m.__twin_rec__ = rec
+            if isinstance(m.__dict__.get("pytest"), _Pytest):
+                m.pytest._rec = rec
+    cls = getattr(mod, case.cls) if case.cls else None
+    fixtures = _fixtures(mod, cls)
+    instance = cls() if cls else None
+    fn = getattr(instance if cls else mod, case.fn)
+    mp = pytest.MonkeyPatch()
+    finalizers: list = []
+    values: dict = {}
+    factory = _Factory(root)
+    builtin = {"tmp_path": lambda: factory.mktemp("tmp", numbered=True),
+               "tmp_path_factory": lambda: factory,
+               "monkeypatch": lambda: mp}
+    _cpu_defaults(mp, pkg)
+    # Ids drawn from `secrets` (hard-link ids) come from the seeded
+    # `random` instead, alike in both packages.
+    mp.setattr(secrets, "token_hex", _seeded_token_hex)
+    clock = Clock(EPOCH_S)
+    for name in clocked:
+        mp.setattr(sys.modules.get(f"{pkg}.{name}")
+                   or __import__(f"{pkg}.{name}", fromlist=["time"]),
+                   "time", clock)
+
+    def resolve(name: str, request_param=None):
+        if name in values:
+            return values[name]
+        if name in builtin:
+            values[name] = builtin[name]()
+            return values[name]
+        f = fixtures[name]
+        if cls is not None and name in vars(cls):
+            f = getattr(instance, name)
+        spec = f._twin_fixture
+        param = None
+        if spec["params"] is not None:
+            param = spec["params"][case.fixture_params[name]]
+        kw = {}
+        for p in inspect.signature(f).parameters:
+            if p == "self":
+                continue
+            kw[p] = _Request(param, finalizers) if p == "request" \
+                else resolve(p)
+        v = f(**kw)
+        if inspect.isgenerator(v):
+            gen = v
+            v = next(gen)
+            finalizers.append(lambda g=gen: next(g, None))
+        values[name] = v
+        return v
+
+    try:
+        for n, f in fixtures.items():
+            if f._twin_fixture["autouse"]:
+                resolve(n)
+        kw = {}
+        for p in inspect.signature(fn).parameters:
+            if p == "self":
+                continue
+            hit = next((k for k in case.call_params if p in k), None)
+            if hit is not None:
+                names, values_ = _param_axis(fn, hit)
+                v = values_[case.call_params[hit]]
+                kw[p] = v[names.index(p)] if len(names) > 1 else v
+            else:
+                kw[p] = resolve(p)
+        fn(**kw)
+    finally:
+        for fin in reversed(finalizers):
+            fin()
+        mp.undo()
+    return rec.records
+
+
+def _param_axis(fn, names: tuple):
+    for n, values, _ids in getattr(fn, "_twin_parametrize", []):
+        if tuple(n) == names:
+            return list(n), values
+    raise KeyError(names)

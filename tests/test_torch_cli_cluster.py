@@ -6,14 +6,16 @@ processes and a `shell -device=cpu` process against them: the shell's
 over the volume servers and every needle reads back through the EC
 path.
 
-Each part of this slice that waits for a later one refuses with
-NotImplementedError (or, on the wire, 501) naming that slice, instead of
-answering a fake success: the gRPC master transport, the filer behind
-`fs.*` and `volume.fsck`, `server -filer/-s3/-webdav` and the /query
-route (slice 11).  The volume server's cross-cluster shipper and lease
-plane and multi-master raft, which refused here until they were ported,
-now start; a `-peers` list that does not name this master is refused as
-the reference refuses it.
+Each part of the port that waits for a later slice refuses with
+NotImplementedError (or, on the wire, 501, or AttributeError for a
+name) naming that slice, instead of answering a fake success:
+`server -s3/-webdav`, the /query route, the Kafka and Pub/Sub
+notification queues and the filer-event replicator (slice 11b).  The
+parts that refused here until they were ported now work: the volume
+server's cross-cluster shipper and lease plane, multi-master raft, the
+gRPC master transport, and `volume.fsck`, which without a filer answers
+the reference's ShellError.  A `-peers` list that does not name this
+master is refused as the reference refuses it.
 """
 
 from __future__ import annotations
@@ -105,7 +107,12 @@ def test_cli_cluster_ec_encode(tmp_path):
                 p.wait(30)
 
 
-def test_unported_parts_refuse(tmp_path):
+def test_unported_parts_refuse(tmp_path, monkeypatch):
+    from seaweedfs_tpu_torch import replication
+    from seaweedfs_tpu_torch.filer.server import FilerServer
+    from seaweedfs_tpu_torch.utils import config
+    from seaweedfs_tpu_torch.replication.notification import queue_for_spec
+    from seaweedfs_tpu_torch.shell import ShellError
     m = MasterServer(meta_dir=str(tmp_path / "m"), pulse_seconds=60)
     m.start()
     try:
@@ -114,8 +121,9 @@ def test_unported_parts_refuse(tmp_path):
                                 replicate_peer="http://127.0.0.1:1",
                                 geo_cluster_id="A")
         assert mirrored.shipper is not None and mirrored.leases is not None
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            WeedClient(m.url(), use_grpc=True)
+        grpc_client = WeedClient(m.url(), use_grpc=True)
+        assert grpc_client._use_grpc
+        grpc_client.close()
         vs = VolumeServer(m.url(), [str(tmp_path / "v")], pulse_seconds=60,
                           device="cpu")
         vs.start()
@@ -125,10 +133,10 @@ def test_unported_parts_refuse(tmp_path):
                 f"http://{vs.url()}/query", "POST",
                 b'{"fid": "%s", "query": "select * from s3object"}'
                 % fid.encode())
-            assert status == 501 and "slice 11" in str(doc)
+            assert status == 501 and "slice 11b" in str(doc)
             env = CommandEnv(m.url(), device="cpu")
             try:
-                with pytest.raises(NotImplementedError, match="slice 11"):
+                with pytest.raises(ShellError, match="no filer configured"):
                     run_command(env, "volume.fsck")
             finally:
                 env.close()
@@ -136,7 +144,22 @@ def test_unported_parts_refuse(tmp_path):
             vs.stop()
     finally:
         m.stop()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        main(["server", "-filer", f"-dir={tmp_path / 's'}", "-device=cpu"])
+    for role in ("s3", "webdav"):
+        with pytest.raises(NotImplementedError, match="slice 11b"):
+            main(["server", f"-{role}", f"-dir={tmp_path / 's'}",
+                  "-device=cpu"])
+    for spec in ("kafka://127.0.0.1:1/t", "pubsub://p/t"):
+        with pytest.raises(NotImplementedError, match="slice 11b"):
+            queue_for_spec(spec)
+    # A filer configured to publish to Kafka refuses to start rather
+    # than drop its events.
+    (tmp_path / "conf").mkdir()
+    (tmp_path / "conf" / "notification.toml").write_text(
+        '[notification.kafka]\nenabled = true\nhosts = "127.0.0.1:1"\n')
+    monkeypatch.setattr(config, "SEARCH_PATHS", [str(tmp_path / "conf")])
+    with pytest.raises(NotImplementedError, match="slice 11b"):
+        FilerServer("http://127.0.0.1:1", port=0)
+    with pytest.raises(AttributeError, match="slice 11b"):
+        replication.Replicator  # noqa: B018
     with pytest.raises(ValueError, match="-peers must include"):
         MasterServer(peers=["127.0.0.1:1", "127.0.0.1:2"])

@@ -25,24 +25,26 @@ from _torch_storage import twin
 
 pytestmark = pytest.mark.torch
 
-# The reference's subcommands that wait for the filer, the gateways or
-# the mount (ROADMAP queue 1, slice 11).
-LATER = {"watch", "scaffold", "filer", "msg.broker", "s3", "webdav", "mount",
-         "filer.replicate", "filer.sync", "filer.backup"}
+# The reference's subcommands that wait for the gateways, the broker,
+# the filer-event replication or the mount (ROADMAP queue 1, slice 11b).
+LATER = {"msg.broker", "s3", "webdav", "mount", "filer.replicate",
+         "filer.sync", "filer.backup"}
+# This slice's commands and the filer's (slice 11a).
+OFFERED = ("backup", "fix", "compact", "export", "benchmark", "watch",
+           "scaffold", "filer")
 
 
 def test_dispatcher_offers_this_slices_commands():
     ref, port = (mod(pkg, "command") for pkg in PACKAGES)
     ref._load_all()
     port._load_all()
-    assert {"backup", "fix", "compact", "export", "benchmark"} <= \
-        set(port.COMMANDS)
+    assert set(OFFERED) <= set(port.COMMANDS)
     assert not LATER & set(port.COMMANDS)
     # Everything the port offers, the reference offers under the same
     # name and usage (the port's volume, server and shell add -device).
     for name, cmd in port.COMMANDS.items():
         assert name in ref.COMMANDS
-        if name in ("backup", "fix", "compact", "export", "benchmark"):
+        if name in OFFERED:
             assert cmd.usage == ref.COMMANDS[name].usage
 
 

@@ -193,6 +193,27 @@ with tempfile.TemporaryDirectory() as d:
     assert COMMANDS["backup"].run(flags, rest) == 0
     for srv in (pr_vs, primary, sb_vs, standby):
         srv.stop()
+    # The filer slice: a filer over a master and a volume server, its
+    # client, the shell's fs.* and volume.fsck.
+    from seaweedfs_tpu_torch.filer.client import FilerProxy
+    from seaweedfs_tpu_torch.filer.server import FilerServer
+    master = MasterServer(meta_dir=os.path.join(d, "fm"), pulse_seconds=60)
+    master.start()
+    fvs = VolumeServer(master.url(), [os.path.join(d, "fv")],
+                       pulse_seconds=60, device="cpu")
+    fvs.start()
+    filer = FilerServer(master.url(), port=0,
+                        store_path=os.path.join(d, "filer"))
+    filer.start()
+    proxy = FilerProxy(filer.url())
+    proxy.put("/iso/dir/a.bin", payloads[3])
+    assert proxy.get("/iso/dir/a.bin").read() == payloads[3]
+    env = CommandEnv(master.url(), filer_url=filer.url(), device="cpu")
+    assert "a.bin" in run_command(env, "fs.ls /iso/dir")
+    assert "0 missing" in run_command(env, "volume.fsck")
+    env.close()
+    for srv in (filer, fvs, master):
+        srv.stop()
 assert not any(sys.modules.get(n) for n in ("jax", "jaxlib", "seaweedfs_tpu"))
 print("ISOLATED-OK")
 """
@@ -252,6 +273,68 @@ def test_port_master_entry_point_with_jax_and_reference_blocked(tmp_path):
         proc.terminate()
         assert proc.wait(30) == 0
     assert "Traceback" not in (tmp_path / "master.log").read_text()
+
+
+_NO_GRPC = _BLOCKED_MASTER.replace(
+    'for name in ("jax", "jaxlib", "seaweedfs_tpu"):',
+    'for name in ("jax", "jaxlib", "seaweedfs_tpu", "grpc", "google.protobuf"):')
+
+
+def test_port_filer_serves_without_grpc_and_protobuf(tmp_path):
+    """`python -m seaweedfs_tpu_torch master|volume|filer` in processes
+    where grpc and google.protobuf cannot be imported (as on a host
+    without them), beside jax and the JAX package: each logs that its
+    gRPC plane is off, and the filer serves a PUT and a GET."""
+    import time
+
+    from seaweedfs_tpu_torch.cluster import rpc
+    mport, fport = rpc.free_port(), rpc.free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    argv = [["master", f"-port={mport}", f"-mdir={tmp_path / 'm'}",
+             "-volumeSizeLimitMB=64"],
+            ["volume", "-device=cpu", f"-port={rpc.free_port()}",
+             f"-dir={tmp_path / 'v'}", "-max=7", f"-mserver=127.0.0.1:{mport}"],
+            ["filer", f"-port={fport}", f"-master=127.0.0.1:{mport}",
+             f"-dir={tmp_path / 'f'}"]]
+    procs, logs = [], []
+    try:
+        for i, args in enumerate(argv):
+            logs.append(tmp_path / f"{args[0]}.log")
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _NO_GRPC, *args],
+                    cwd=str(tmp_path), env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        murl, furl = f"http://127.0.0.1:{mport}", f"http://127.0.0.1:{fport}"
+
+        def up():
+            code, doc = rpc.call_status(murl + "/cluster/healthz",
+                                        timeout=2.0)
+            rpc.call(furl + "/", timeout=2.0)
+            return len(doc.get("nodes", [])) == 1
+        deadline = time.monotonic() + 90
+        while True:
+            for p, log in zip(procs, logs):
+                assert p.poll() is None, log.read_text()[-3000:]
+            try:
+                if up():
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "cluster did not start"
+            time.sleep(0.2)
+        payload = os.urandom(300_000)
+        rpc.call(furl + "/nogrpc/a.bin", "PUT", payload)
+        assert bytes(rpc.call(furl + "/nogrpc/a.bin")) == payload
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait(30)
+    for log in logs:
+        text = log.read_text()
+        assert "gRPC plane disabled" in text, text[-3000:]
+        assert "Traceback" not in text, text[-3000:]
 
 
 @pytest.mark.parametrize("command", ["volume", "shell", "server"])

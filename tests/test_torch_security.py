@@ -146,10 +146,10 @@ def test_dispatcher_lists_only_the_ported_commands(capsys):
     out = capsys.readouterr().out
     for name in ("master", "volume", "server", "shell", "upload",
                  "download", "version", "backup", "fix", "compact",
-                 "export", "benchmark"):
+                 "export", "benchmark", "filer", "watch", "scaffold"):
         assert f"  {name} " in out
-    assert "filer " not in out and "watch " not in out
-    assert command.main(["filer"]) == 2
+    assert "  s3 " not in out and "  webdav " not in out
+    assert command.main(["s3"]) == 2
     assert "unknown command" in capsys.readouterr().err
 
 

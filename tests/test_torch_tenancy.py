@@ -6,7 +6,8 @@ of its end-to-end cases (403 QuotaExceeded at assign from the
 heartbeat-fed rollup, the quota event, the rollup surviving a restart,
 429 for a tenant over its rate, a clean scrape).  The volume-server
 cases are in tests/test_torch_volume_planes.py; those that need a filer
-wait for it (ROADMAP queue 1, slice 11)."""
+are not held here (the filer is ported, slice 11a; the S3 gateway waits
+for slice 11b)."""
 
 from __future__ import annotations
 

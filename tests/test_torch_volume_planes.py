@@ -2,8 +2,9 @@
 VolumeServer cases of tests/test_tenancy.py and tests/test_slo.py and
 the end-to-end tiering and TTL cases of tests/test_lifecycle.py, each
 run once for the JAX package and once for the port (`pkg`).  Their
-filer and S3 halves wait for the filer (ROADMAP queue 1, slice 11), so
-the tenant cases write straight to the volume server.
+filer halves are not held here (the filer is ported, slice 11a) and
+their S3 halves wait for slice 11b, so the tenant cases write straight
+to the volume server.
 
 - tenancy: a hard quota rejects assigns once the heartbeat rollup
   passes it, a delete reclaims, the volume ledger agrees; a flooding
