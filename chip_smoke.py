@@ -4,8 +4,8 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--dat-mib 1024] [--batch-div 1]
-                          [--live-mib 1024] [--ha-mib 1024]
-                          [--filer-mib 1024]
+                          [--live-mib 256] [--ha-mib 1024]
+                          [--filer-mib 512] [--gateway-mib 1024]
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -120,8 +120,8 @@ Phases; any failure raises and the script exits non-zero:
              `python -m seaweedfs_tpu_torch master` in a process that
              blocks jax, jaxlib and seaweedfs_tpu; after one full beat
              per node and one delta per pulse, 8 client threads on
-             rpc.call's keep-alive pool send 10 000 /dir/assign
-             (count=1, replication=010) and 10 000 /dir/lookup over the
+             rpc.call's keep-alive pool send 2 500 /dir/assign
+             (count=1, replication=010) and 2 500 /dir/lookup over the
              224 volumes and the EC volume; then /vol/list,
              /cluster/healthz, one node's goodbye and lookups of what it
              held, and /cluster/device.  Every fid must name a declared
@@ -210,8 +210,9 @@ Phases; any failure raises and the script exits non-zero:
              chunks), every role a `python -m seaweedfs_tpu_torch`
              process, the limit cut to --filer-mib.  A namespace from
              --seed goes in through the filer's HTTP API from 8 threads:
-             2 GiB of large files (log-uniform 64 KiB..16 MiB), 20 000
-             small ones (1..16 KiB) over 256 directories three levels
+             twice the limit in large files (log-uniform 64 KiB..16
+             MiB), 10 000 small ones (1..16 KiB) per 1024 MiB of limit
+             (5 000 at the default 512) over 256 directories three levels
              deep, every acknowledged write recorded with its sha256;
              `fs.ls` of every directory and `fs.du /` must match it; the
              filer is SIGKILLed and restarted on the same -dir, and every
@@ -226,14 +227,57 @@ Phases; any failure raises and the script exits non-zero:
              the filer's chunk cache held), then 300 ranges across chunk
              boundaries; `volume.fsck -orphans` through CommandEnv.filer()
              finds 0 missing and 0 orphans; after the dead-node sweep
-             `ec.rebuild` restores the lost shards byte for byte and every
-             file reads back again; `fs.rm -r` of one directory, and once
-             its chunk deletes have landed, fsck again finds 0 orphans.
+             `ec.rebuild` restores the lost shards byte for byte; `fs.rm
+             -r` of one directory, until its chunk deletes have landed (no
+             live needle that no entry names).
+
+13. gateway — a gateway-fronted EC cluster: phase 12's layout (`weed
+             master -volumeSizeLimitMB=30000 -defaultReplication=000`, six
+             `weed volume -max=7 -device=cuda` in 2 racks x 3, `weed filer
+             -dir=...`) with `weed s3 -config=s3.json` (an admin and a
+             read-only identity in upstream's s3.json shape), `weed
+             webdav` and `weed msg.broker` in front, every role a `python
+             -m seaweedfs_tpu_torch` process, the limit cut to
+             --gateway-mib.  From --seed, 8 threads write through S3 with
+             SigV4 and aws-chunked bodies (STREAMING-AWS4-HMAC-SHA256-
+             PAYLOAD, as SDKs send them): 512 MiB of objects log-uniform
+             64 KiB..16 MiB, 4 multipart uploads of 64 MiB in 8 MiB parts,
+             5 000 small objects of 1..16 KiB and 16 CSV objects of 4 MiB;
+             128 MiB of files through WebDAV (MKCOL, PUT) two levels deep;
+             20 000 messages of 1 KiB to a 4-partition topic through the
+             broker; one 64 MiB file through the mount's WFS (in this
+             process; FUSE is a kernel interface of the host) in 1 MiB
+             writes at random offsets; `filer.copy` of a seeded local
+             tree of 200 files.  ListObjectsV2 paginated at 1000 keys and
+             PROPFIND Depth: 1 of every WebDAV directory must equal what
+             was written, the read-only identity's PUT must get 403.  The
+             broker is stopped (its tails flushed to the filer), the
+             volume Query RPC runs a SELECT on a CSV needle and must equal
+             Python's csv module's answer; `lock; ec.encode` of every
+             volume holding the namespace in a shell process (K2 in the
+             holders, every shard and .ecc entry held against
+             write_ec_files of a sealed copy); a holder of 3 or more
+             shards of a volume is SIGKILLed and swept.  Then each gateway
+             reads everything back, each pass counted in the survivors (K1
+             10->1 per lost interval of the chunks it reads, less those the
+             filer's chunk cache held): S3 Select over every CSV object
+             (equal to the plain evaluation), 300 S3 Range GETs across
+             chunk boundaries, every S3 object, every WebDAV file, every
+             message from offset 0 of every partition in order (the broker
+             restarted, reading sealed segments), the WFS file through a
+             fresh WFS, and `filer.replicate -once -sink=local://...` of
+             the copied tree; every byte must equal what was acknowledged.
+             `ec.rebuild` restores the lost shards byte for byte and
+             `volume.fsck -orphans` finds 0 missing and 0 orphans.  Last,
+             X4 on the card: 2 gloo ranks (NCCL refuses two ranks on one
+             device) run all_to_all_reconstruct and ring_reconstruct on
+             seeded (2, 10, 64 MiB) survivors of 4 lost shards, each rank's
+             K1 on the card, and must equal batched_reconstruct's answer.
 
 Phase 6 runs before phase 8, phase 8 before phase 9, phase 9 before phase
-10, phase 10 before phase 11, phase 11 before phase 12, and phase 12
-before phase 5, whose timings include phase 6's shapes; phase 7 runs
-last.
+10, phase 10 before phase 11, phase 11 before phase 12, phase 12 before
+phase 13, and phase 13 before phase 5, whose timings include phase 6's
+shapes; phase 7 runs last.
 
 The build phase also logs ptxas's registers per kernel and, where the
 toolkit has cuobjdump, static SASS opcode counts per kernel.
@@ -254,8 +298,13 @@ rates, launches per kernel, step and process, every process's RSS), a
 {"filer_cluster": ...} line (write GB/s, small-file creates/s and p99,
 listing and filer-restart seconds, degraded-read and range p50/p99,
 chunk-cache hits, K1/K2 launches per step in the volume servers, the
-fsck reports, every process's RSS, device busy share),
-nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
+fsck reports, every process's RSS, device busy share), a
+{"gateway_cluster": ...} line (S3 PUT GB/s and p50/p99 of large and
+small objects, multipart GB/s, ListObjectsV2 seconds, WebDAV PUT and GET
+GB/s, broker publish and consume messages/s, degraded S3 GET and range
+p50/p99, Select MB/s, the replicate wall, K1/K2 launches per pass and
+process, the chunk cache's hits, each gateway's RSS, device busy share
+per step, X4's walls), nvidia-smi's line, a {"kernels": [...]} line, and last {"ok": true,
 "device": {...}}.
 """
 
@@ -267,11 +316,13 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 
 import numpy as np
 
@@ -352,8 +403,8 @@ CLUSTER_REPLICATION = "010"
 CLUSTER_PULSE_S = 5
 # Cut from 20 000 each per transport when phase 12 joined the script,
 # to keep the whole script well within its time limit.
-CLUSTER_ASSIGNS = 10000
-CLUSTER_LOOKUPS = 10000
+CLUSTER_ASSIGNS = 2500  # 10000 before phase 13 joined
+CLUSTER_LOOKUPS = 2500
 CLUSTER_CLIENTS = 8
 CLUSTER_TRANSPORTS = ("threads", "aio")
 CLUSTER_BASE_PORT = 41000
@@ -372,7 +423,7 @@ LIVE_NODES = 6
 LIVE_RACKS = 2
 LIVE_MAX_VOLUMES = 7
 LIVE_REPLICATION = "000"
-LIVE_LIMIT_MB = 512  # --live-mib (1024 before phase 12 joined)
+LIVE_LIMIT_MB = 256  # --live-mib (1024 before phase 12, 512 before 13)
 LIVE_COLLECTION = "ec10"
 LIVE_VOLUMES = 3
 LIVE_FULL_PERCENT = 95
@@ -416,13 +467,13 @@ FILER_NODES = 6
 FILER_RACKS = 2
 FILER_MAX_VOLUMES = 7
 FILER_REPLICATION = "000"
-FILER_LIMIT_MB = 1024  # --filer-mib
+FILER_LIMIT_MB = 512  # --filer-mib (1024 before phase 13 joined)
 FILER_COLLECTION = "fs12"
 FILER_PREGROW = 2  # volumes the large files fill
 FILER_FULL_PERCENT = 95
-FILER_LARGE_PER_LIMIT = 2  # 2 GiB of large files at a 1024 MiB limit
+FILER_LARGE_PER_LIMIT = 2  # twice the limit in large files
 FILER_LARGE_RANGE = (64 << 10, 16 << 20)
-FILER_SMALL = 20000  # small files per 1024 MiB of limit
+FILER_SMALL = 10000  # small files per 1024 MiB of limit (20000 before phase 13)
 FILER_SMALL_RANGE = (1 << 10, 16 << 10)
 FILER_DIRS = (4, 8, 8)  # three levels, 256 leaf directories
 FILER_BLOB_MIB = 64
@@ -432,6 +483,55 @@ FILER_RANGES = 300
 FILER_RM_DIR = "/a0/b0"
 # `python -m seaweedfs_tpu_torch <args>` (runpy.run_module is what -m
 # runs) with the JAX package and JAX itself blocked in sys.modules.
+# Phase 13 (a gateway-fronted EC cluster): upstream's `weed master
+# -volumeSizeLimitMB=30000 -defaultReplication=000`, six `weed volume
+# -max=7` in 2 racks x 3, `weed filer -dir=`, `weed s3 -config=s3.json`,
+# `weed webdav`, `weed msg.broker`; the limit cut by --gateway-mib.
+GW_NODES = 6
+GW_RACKS = 2
+GW_MAX_VOLUMES = 7
+GW_REPLICATION = "000"
+GW_LIMIT_MB = 1024  # --gateway-mib
+GW_COLLECTION = "gw13"
+GW_BUCKET = "gw13"
+GW_PREGROW = 1  # the volume the first writes fill
+GW_FULL_PERCENT = 95
+GW_WRITERS = 8
+GW_BLOB_MIB = 96
+GW_LARGE_MIB = 512  # S3 objects, log-uniform GW_LARGE_RANGE
+GW_LARGE_RANGE = (64 << 10, 16 << 20)
+GW_MULTIPARTS = 4  # uploads of GW_MULTIPART_MIB in GW_PART_MIB parts
+GW_MULTIPART_MIB = 64
+GW_PART_MIB = 8  # the AWS CLI's default part size
+GW_SMALL = 5000
+GW_SMALL_RANGE = (1 << 10, 16 << 10)
+GW_CSVS = 16
+GW_CSV_MIB = 4
+GW_DAV_MIB = 128  # WebDAV files, two levels deep
+GW_DAV_RANGE = (64 << 10, 4 << 20)
+GW_DAV_DIRS = (4, 4)
+GW_MESSAGES = 20000  # 100 000 cut to fit the script's time (reduced)
+GW_MESSAGE_BYTES = 1024
+GW_PARTITIONS = 4
+GW_NS, GW_TOPIC = "gw", "events"
+GW_WFS_MIB = 64  # one file through the mount's WFS
+GW_WFS_WRITE = 1 << 20  # in 1 MiB writes at random offsets
+GW_COPY_FILES = 200  # filer.copy of a local tree
+GW_COPY_RANGE = (1 << 10, 1 << 20)
+GW_RANGES = 300
+GW_AWS_CHUNK = 64 << 10  # aws-chunked chunk size of the SDKs
+GW_ADMIN = ("AKIDGW13ADMIN", "gw13/admin/secret")
+GW_READER = ("AKIDGW13READER", "gw13/reader/secret")
+GW_SELECT_FLOOR = 900
+GW_SELECT = f"SELECT id, score FROM S3Object WHERE score > {GW_SELECT_FLOOR}"
+# Phase 13's read passes after the holder's kill, one per gateway.
+GW_PASSES = ("s3_select", "s3_get_all", "s3_ranges", "webdav_get_all",
+             "broker_consume", "wfs_read", "filer_replicate")
+X4_RANKS = 2  # gloo ranks on the one card (data_shards 10 divides by 2)
+X4_VOLUMES = 2
+X4_MIB = 64  # bytes per shard row at --gateway-mib 1024
+X4_LOST = (1, 5, 10, 12)
+
 MASTER_LAUNCH = (
     "import runpy, sys\n"
     "for name in ('jax', 'jaxlib', 'seaweedfs_tpu'):\n"
@@ -2136,9 +2236,11 @@ def port_process(args: list[str], log_path: str,
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
     with open(log_path, "w") as log_f:
-        return subprocess.Popen(
+        p = subprocess.Popen(
             [sys.executable, "-c", launch, *args], cwd=REPO, env=env,
             stdout=log_f, stderr=subprocess.STDOUT)
+    p.log_path = log_path
+    return p
 
 
 def wait_for(pred, what: str, procs, timeout: float = 90.0):
@@ -2147,8 +2249,13 @@ def wait_for(pred, what: str, procs, timeout: float = 90.0):
     deadline = time.monotonic() + timeout
     while True:
         for p in procs:
-            check(p.poll() is None, f"{what}: a cluster process exited "
-                                    f"({p.args[3:6]})")
+            if p.poll() is not None:
+                tail = ""
+                if getattr(p, "log_path", None):
+                    with open(p.log_path, errors="replace") as f:
+                        tail = f.read()[-1500:]
+                check(False, f"{what}: a cluster process exited "
+                             f"({p.args[3:6]}): {tail}")
         try:
             got = pred()
             if got:
@@ -3405,10 +3512,17 @@ def phase_ha_cluster(torch, dev, args) -> dict:
         ev.close()
         reader = WeedClient(survivors)
         lat = []
-        for fid in sample:
+        for i, fid in enumerate(sample):
             off, size = fids[fid]
             t0 = time.perf_counter()
-            data = reader.download(fid)
+            try:
+                data = reader.download(fid)
+            except rpc.RpcError as e:
+                raise RuntimeError(
+                    f"degraded read {i} ({fid}) "
+                    f"{time.perf_counter() - t_kill:.2f} s after the "
+                    f"kill: {e}; masters: {ha_diagnosis(survivors, vid)}"
+                ) from None
             lat.append(time.perf_counter() - t0)
             check(data == blob[off:off + size], f"degraded read {fid} wrong")
         out["degraded_read_ms"] = {"p50": pct_ms(lat, 50),
@@ -3536,6 +3650,24 @@ def phase_ha_cluster(torch, dev, args) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"ha cluster: {json.dumps(out['walls_s'])}")
+    return out
+
+
+def ha_diagnosis(murls: list[str], vid: int) -> dict:
+    """What each master says of itself and of volume `vid` (for a
+    failure's message): raft role and term, and its /dir/lookup."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    out = {}
+    for u in murls:
+        try:
+            st = rpc.call(u + "/cluster/status", timeout=5.0)
+            out[u] = {"is_leader": st.get("is_leader"),
+                      "leader": st.get("leader"),
+                      "term": st.get("raft", {}).get("term"),
+                      "lookup": rpc.call_status(
+                          f"{u}/dir/lookup?volumeId={vid}", timeout=5.0)}
+        except Exception as e:  # noqa: BLE001 — a diagnosis, best effort
+            out[u] = repr(e)
     return out
 
 
@@ -3679,7 +3811,14 @@ def phase_filer_cluster(torch, dev, args) -> dict:
     env = None
     evs: dict = {}
     out: dict = {"reduced": {"volume_size_limit_mb": [30000, limit_mb],
-                             "hosts": [FILER_NODES + 2, 1]},
+                             "hosts": [FILER_NODES + 2, 1],
+                             "small_files_per_1024_mib": [20000,
+                                                          FILER_SMALL],
+                             "read_after_rebuild": "not run since phase 13 "
+                                                   "joined (time)",
+                             "fsck_after_rm": "not run since phase 13 "
+                                              "joined (time); the orphan "
+                                              "wait holds the deletes"},
                  "walls_s": {}, "gb_s": {}, "launches": {}}
     try:
         mport, fport = rpc.free_port(), rpc.free_port()
@@ -3998,14 +4137,7 @@ def phase_filer_cluster(torch, dev, args) -> dict:
         rows5 = node_device_rows(murl, live, time.time(), procs)
         out["launches"]["rebuild"] = {
             "volume_servers": vs_kernel_launches(rows_delta(rows4, rows5))}
-        wall, _lat = pool_run(sorted(files), read_equal, FILER_WRITERS)
-        out["walls_s"]["read_after_rebuild"] = wall
-        out["gb_s"]["read_after_rebuild"] = written / wall / 1e9
-        rows6 = node_device_rows(murl, live, time.time(), procs)
-        out["launches"]["read_after_rebuild"] = {
-            "volume_servers": vs_kernel_launches(rows_delta(rows5, rows6))}
-        log(f"filer: rebuilt in {out['walls_s']['rebuild']:.1f} s, read all "
-            f"again in {wall:.1f} s")
+        log(f"filer: rebuilt in {out['walls_s']['rebuild']:.1f} s")
 
         # -- 9. fs.rm -r one directory; fsck once its deletes land -------
         gone = [p for p in files if p.startswith(FILER_RM_DIR + "/")]
@@ -4031,13 +4163,7 @@ def phase_filer_cluster(torch, dev, args) -> dict:
             raise RuntimeError(f"{e}: live needles no chunk names, by "
                                f"volume: {orphans()}") from None
         out["walls_s"]["rm_until_deletes_landed"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        fsck = run_command(env, "volume.fsck -orphans")
-        out["walls_s"]["fsck_after_rm"] = time.perf_counter() - t0
         kept = n_chunks - sum(len(chunks[p]) for p in gone)
-        out["fsck_after_rm"] = fsck
-        check(fsck == f"checked {kept} chunks, 0 missing, 0 orphans",
-              f"volume.fsck after fs.rm: {fsck[:2000]}")
         out["removed"] = {"dir": FILER_RM_DIR, "files": len(gone),
                           "chunks": n_chunks - kept}
 
@@ -4070,6 +4196,1045 @@ def phase_filer_cluster(torch, dev, args) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"filer cluster: {json.dumps(out['walls_s'])}")
+    return out
+
+
+# -- phase 13: a gateway-fronted EC cluster on the card ----------------------
+
+
+def s3_identities_doc() -> dict:
+    """Upstream's s3.json shape (weed s3 -config): one admin identity and
+    one that may only read and list."""
+    return {"identities": [
+        {"name": "admin",
+         "credentials": [{"accessKey": GW_ADMIN[0], "secretKey": GW_ADMIN[1]}],
+         "actions": ["Admin", "Read", "Write", "List", "Tagging"]},
+        {"name": "reader",
+         "credentials": [{"accessKey": GW_READER[0],
+                          "secretKey": GW_READER[1]}],
+         "actions": ["Read", "List"]}]}
+
+
+def aws_chunked(body, signed: dict, secret: str,
+                chunk: int = GW_AWS_CHUNK) -> bytes:
+    """`body` framed as the aws-chunked stream an SDK sends under
+    STREAMING-AWS4-HMAC-SHA256-PAYLOAD: 64 KiB chunks, each with its
+    signature chained from the request's seed signature, then the empty
+    terminating chunk."""
+    import hmac
+
+    from seaweedfs_tpu_torch.s3api.sigv4 import derive_signing_key
+    auth = signed["Authorization"]
+    prev = auth.rsplit("Signature=", 1)[1]
+    scope = auth.split("Credential=", 1)[1].split(",", 1)[0].split("/", 1)[1]
+    date, region, service, _term = scope.split("/")
+    key = derive_signing_key(secret, date, region, service)
+    empty = hashlib.sha256(b"").hexdigest()
+    mv = memoryview(body)
+    out = bytearray()
+    for off in list(range(0, len(mv), chunk)) + [len(mv)]:
+        piece = mv[off:off + chunk] if off < len(mv) else b""
+        sts = "\n".join(("AWS4-HMAC-SHA256-PAYLOAD", signed["x-amz-date"],
+                         scope, prev, empty,
+                         hashlib.sha256(piece).hexdigest()))
+        prev = hmac.new(key, sts.encode(), hashlib.sha256).hexdigest()
+        out += f"{len(piece):x};chunk-signature={prev}\r\n".encode()
+        out += piece
+        out += b"\r\n"
+    return bytes(out)
+
+
+class S3Client:
+    """A SigV4 client of the port's S3 gateway: header auth as SDKs
+    send it, with aws-chunked bodies for object and part uploads."""
+
+    def __init__(self, url: str, access_key: str, secret_key: str):
+        self.url, self.ak, self.sk = url, access_key, secret_key
+
+    def call(self, method: str, path: str, query: str = "",
+             body: bytes = b"", headers: dict | None = None,
+             streaming: bool = False):
+        from seaweedfs_tpu_torch.cluster import rpc
+        from seaweedfs_tpu_torch.s3api.sigv4 import sign_request
+        url = self.url + urllib.parse.quote(path) + (
+            f"?{query}" if query else "")
+        hdrs = dict(headers or {})
+        if streaming:
+            hdrs["Content-Encoding"] = "aws-chunked"
+            hdrs["x-amz-decoded-content-length"] = str(len(body))
+            signed = sign_request(
+                method, url, hdrs, b"", self.ak, self.sk,
+                payload_hash="STREAMING-AWS4-HMAC-SHA256-PAYLOAD")
+            body = aws_chunked(body, signed, self.sk)
+        else:
+            signed = sign_request(method, url, hdrs, body, self.ak, self.sk)
+        signed.pop("Host")  # the rpc layer sends the same Host line
+        return rpc.call_status(url, method, body or None, timeout=600.0,
+                               headers=signed)
+
+
+def s3_event_records(data: bytes) -> bytes:
+    """The Records payload of an AWS event stream (S3 Select's answer),
+    every frame's prelude and message CRC checked."""
+    import struct
+    import zlib
+    out = bytearray()
+    pos = 0
+    while pos < len(data):
+        total, hlen = struct.unpack_from(">II", data, pos)
+        check(struct.unpack_from(">I", data, pos + 8)[0]
+              == zlib.crc32(data[pos:pos + 8]), "event-stream prelude CRC")
+        check(struct.unpack_from(">I", data, pos + total - 4)[0]
+              == zlib.crc32(data[pos:pos + total - 4]),
+              "event-stream message CRC")
+        raw = data[pos + 12:pos + 12 + hlen]
+        etype, hp = None, 0
+        while hp < len(raw):
+            nlen = raw[hp]
+            name = raw[hp + 1:hp + 1 + nlen].decode()
+            vlen = struct.unpack_from(">H", raw, hp + 2 + nlen)[0]
+            if name == ":event-type":
+                etype = raw[hp + 4 + nlen:hp + 4 + nlen + vlen].decode()
+            hp += 4 + nlen + vlen
+        if etype == "Records":
+            out += data[pos + 12 + hlen:pos + total - 4]
+        pos += total
+    return bytes(out)
+
+
+def csv_object(rng, target: int) -> bytes:
+    """A seeded CSV of just under `target` bytes: a header and rows of
+    id, name, score (0..999) and a padding field."""
+    rows = ["id,name,score,note"]
+    size = len(rows[0]) + 1
+    i = 0
+    while True:
+        row = (f"{i},user{int(rng.integers(1 << 20))},"
+               f"{int(rng.integers(1000))},{'x' * int(rng.integers(8, 64))}")
+        if size + len(row) + 1 > target:
+            break
+        rows.append(row)
+        size += len(row) + 1
+        i += 1
+    return ("\n".join(rows) + "\n").encode()
+
+
+def plain_select(data: bytes, floor: int) -> bytes:
+    """GW_SELECT over one CSV object by Python's csv module: the rows
+    whose score is above `floor`, projected to id and score, as the
+    engine's JSON lines."""
+    import csv
+    import io
+    rows = csv.DictReader(io.StringIO(data.decode()))
+    return b"".join(
+        json.dumps({"id": r["id"], "score": r["score"]},
+                   separators=(",", ":")).encode() + b"\n"
+        for r in rows if float(r["score"]) > floor)
+
+
+def gateway_data(seed: int, limit_mb: int) -> dict:
+    """The seeded data of phase 13, scaled by the volume limit over
+    1024 MiB: S3 objects (large log-uniform GW_LARGE_RANGE, multipart
+    uploads in GW_PART_MIB parts, small ones, CSV objects), WebDAV files
+    two levels deep, the messages' count, the WFS file and the local
+    tree filer.copy uploads.  Payloads are slices of one random blob."""
+    rng = np.random.default_rng(seed + 130)
+    scale = limit_mb / 1024
+    blob_bytes = GW_BLOB_MIB * MIB
+    blob = memoryview(rng.bytes(blob_bytes))
+
+    def logu(lo, hi):
+        return int(math.exp(rng.uniform(math.log(lo), math.log(hi))))
+
+    def sized(n):
+        return int(rng.integers(blob_bytes - n)), n
+    large: dict = {}
+    total, i = 0, 0
+    lo, hi = GW_LARGE_RANGE
+    hi = min(hi, limit_mb * MIB // 8)
+    while total < GW_LARGE_MIB * MIB * scale:
+        size = logu(lo, hi)
+        large[f"large/{i % 16:02d}/obj{i:05d}.bin"] = sized(size)
+        total += size
+        i += 1
+    part = max(int(GW_PART_MIB * MIB * scale), 5 << 20) \
+        if scale >= 1 else max(int(GW_PART_MIB * MIB * scale), 256 << 10)
+    multipart = {f"multi/mp{j}.bin": [sized(part) for _ in range(
+        GW_MULTIPART_MIB // GW_PART_MIB)] for j in range(GW_MULTIPARTS)}
+    lo, hi = GW_SMALL_RANGE
+    small = {f"small/{j % 64:02d}/s{j:05d}.bin": sized(logu(lo, hi))
+             for j in range(max(int(GW_SMALL * scale), 100))}
+    csv_size = min(GW_CSV_MIB * MIB, max(int(GW_CSV_MIB * MIB * scale),
+                                         256 << 10)) - 4096
+    csvs = {f"csv/c{j:02d}.csv": csv_object(rng, csv_size)
+            for j in range(max(int(GW_CSVS * scale), 2))}
+    dav: dict = {}
+    total, i = 0, 0
+    lo, hi = GW_DAV_RANGE
+    dirs = [f"/dav/d{a}/e{b}" for a in range(GW_DAV_DIRS[0])
+            for b in range(GW_DAV_DIRS[1])]
+    while total < GW_DAV_MIB * MIB * scale:
+        size = logu(lo, hi)
+        dav[f"{dirs[i % len(dirs)]}/f{i:04d}.bin"] = sized(size)
+        total += size
+        i += 1
+    lo, hi = GW_COPY_RANGE
+    copy = {f"t{j % 8}/f{j:03d}.bin": sized(logu(lo, hi))
+            for j in range(GW_COPY_FILES)}
+    wfs_size = max(int(GW_WFS_MIB * MIB * scale), 4 * GW_WFS_WRITE)
+    wfs_blocks = list(range(wfs_size // GW_WFS_WRITE))
+    rng.shuffle(wfs_blocks)
+    return {"blob": blob, "large": large, "multipart": multipart,
+            "small": small, "csv": csvs, "dav": dav, "dav_dirs": dirs,
+            "copy": copy, "messages": max(int(GW_MESSAGES * scale), 500),
+            "wfs_size": wfs_size, "wfs_order": wfs_blocks,
+            "wfs_base": int(rng.integers(blob_bytes - wfs_size))}
+
+
+def webdav_names(durl: str, path: str) -> set:
+    """PROPFIND Depth: 1 of a WebDAV collection: its members' names
+    (a collection's ending in /)."""
+    import xml.etree.ElementTree as ET
+
+    from seaweedfs_tpu_torch.cluster import rpc
+    status, body = rpc.call_status(durl + path + "/", "PROPFIND",
+                                   headers={"Depth": "1"}, timeout=60.0)
+    check(status == 207, f"PROPFIND {path}: {status}")
+    out = set()
+    for r in ET.fromstring(bytes(body)).iter("{DAV:}response"):
+        href = urllib.parse.unquote(r.find("{DAV:}href").text)
+        if href.rstrip("/") == path.rstrip("/"):
+            continue
+        name = href.rstrip("/").rsplit("/", 1)[1]
+        out.add(name + ("/" if href.endswith("/") else ""))
+    return out
+
+
+def namespace_keys(proxy) -> dict:
+    """{volume id: needle ids} the chunks of every entry of the filer's
+    namespace name (volume.fsck's walk: every directory from /, each
+    file's metadata on GW_WRITERS threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.core import types as t
+    files, stack = [], ["/"]
+    while stack:
+        d = stack.pop()
+        for e in proxy.list_all(d):
+            (stack if e["is_directory"] else files).append(e["FullPath"])
+    with ThreadPoolExecutor(GW_WRITERS) as pool:
+        metas = list(pool.map(proxy.meta, files))
+    out: dict = {}
+    for meta in metas:
+        for c in (meta or {}).get("chunks", []):
+            vid, key, _cookie = t.parse_file_id(c["file_id"])
+            out.setdefault(vid, set()).add(key)
+    return out
+
+
+def _x4_rank(rank: int, world: int, port: int, dev_type: str, seed: int,
+             width: int, out_dir: str) -> None:
+    """One rank of phase 13's X4 step, in a gloo group on localhost: it
+    makes the seeded survivors itself, encodes them and takes
+    batched_reconstruct's answer on its device (the single-device
+    reference), then runs each X4 function once; its wall, this rank's
+    K1 launches inside it and whether its column block equals the
+    reference's go to <out_dir>/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    from seaweedfs_tpu_torch.ops.coder_cuda import apply_bitmatrix
+    from seaweedfs_tpu_torch.parallel import sharded_codec as sc
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" \
+        else torch.device("cpu")
+    rng = np.random.default_rng(seed + 140)
+    data = torch.from_numpy(rng.integers(0, 256, (X4_VOLUMES, 10, width),
+                                         dtype=np.uint8)).to(dev)
+    shards = torch.cat([data, sc.batched_encode(data, device=dev)], dim=1)
+    present = tuple(s for s in range(14) if s not in X4_LOST)
+    stacked = shards[:, list(present[:10])].contiguous()
+    want = sc.batched_reconstruct(stacked, present, X4_LOST, device=dev)
+    report = {"reference_equals_shards": bool(torch.equal(
+        want, shards[:, list(X4_LOST)]))}
+    chunk = width // world
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        for name in ("all_to_all_reconstruct", "ring_reconstruct"):
+            n0 = apply_bitmatrix.launches
+            dist.barrier()
+            t0 = time.perf_counter()
+            local = getattr(sc, name)(stacked, present, X4_LOST, device=dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            dist.barrier()
+            report[name] = {
+                "wall_s": time.perf_counter() - t0,
+                "k1_launches": apply_bitmatrix.launches - n0,
+                "equal": bool(torch.equal(
+                    local, want[:, :, rank * chunk:(rank + 1) * chunk]))}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def phase_x4(torch, dev, seed: int, width: int, work: str) -> dict:
+    """X4 on one card: X4_RANKS gloo ranks (NCCL refuses two ranks on one
+    device) run all_to_all_reconstruct and ring_reconstruct on seeded
+    (X4_VOLUMES, 10, width) survivors of X4_LOST lost shards, each
+    rank's K1 on `dev` and the exchange through host tensors; every
+    rank's column block must be byte-equal to batched_reconstruct of the
+    same survivors on `dev`, and launch one K1 per function on the
+    card."""
+    import torch.multiprocessing as mp
+
+    from seaweedfs_tpu_torch.cluster import rpc
+    out_dir = os.path.join(work, "x4")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(_x4_rank, args=(X4_RANKS, rpc.free_port(), dev.type, seed,
+                             width, out_dir), nprocs=X4_RANKS, join=True)
+    reports = []
+    for r in range(X4_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    out = {"ranks": X4_RANKS, "backend": "gloo",
+           "shape": [X4_VOLUMES, 10, width], "lost": list(X4_LOST),
+           "spawn_and_run_s": time.perf_counter() - t0,
+           "wall_s": {}, "k1_launches": {}}
+    check(all(r["reference_equals_shards"] for r in reports),
+          "batched_reconstruct differs from the encoded shards")
+    for name in ("all_to_all_reconstruct", "ring_reconstruct"):
+        check(all(r[name]["equal"] for r in reports),
+              f"X4 {name} differs from batched_reconstruct")
+        out["wall_s"][name] = max(r[name]["wall_s"] for r in reports)
+        launches = [r[name]["k1_launches"] for r in reports]
+        out["k1_launches"][name] = launches
+        if dev.type == "cuda":
+            check(launches == [1] * X4_RANKS,
+                  f"X4 {name}: K1 launches per rank {launches}")
+    return out
+
+
+def phase_gateway_cluster(torch, dev, args) -> dict:
+    """Phase 13: S3, WebDAV and the message broker in front of a filer
+    and a live EC cluster on the card's host, every role a `python -m
+    seaweedfs_tpu_torch` process, plus the mount's WFS in this process
+    and `filer.copy`/`filer.replicate` processes: write seeded data
+    through each gateway, list it, query a CSV needle, ec.encode in the
+    holders (K2), kill -9 a holder, read everything back through every
+    gateway (K1 in the survivors, counted per pass and reconciled with
+    the lost intervals read and the filer's cache hits), ec.rebuild,
+    volume.fsck -orphans, then X4 on the card."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.core import types as t
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.filer.client import FilerProxy
+    from seaweedfs_tpu_torch.messaging import MessagingClient
+    from seaweedfs_tpu_torch.mount.vfs import WFS
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage import chunk_cache
+
+    t_phase = time.perf_counter()
+    limit_mb = args.gateway_mib
+    limit = limit_mb * MIB
+    work = os.path.join(REPO, "_smoke_work", "gateway")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    dev_flag = f"-device={dev.type}"
+    procs: list = []
+    env = None
+    wfs = None
+    evs: dict = {}
+    out: dict = {"reduced": {"volume_size_limit_mb": [30000, limit_mb],
+                             "hosts": [GW_NODES + 5, 1],
+                             "broker_messages": [100000, GW_MESSAGES],
+                             "x4": "gloo over 2 ranks on one card (NCCL "
+                                   "refuses two ranks on one device); the "
+                                   "exchange through host tensors"},
+                 "walls_s": {}, "gb_s": {}, "launches": {}, "rss_mib": {}}
+    try:
+        ports = {r: rpc.free_port() for r in
+                 ("master", "filer", "s3", "webdav", "broker")}
+        murl, furl, s3url, durl, burl = (
+            f"http://127.0.0.1:{ports[r]}" for r in
+            ("master", "filer", "s3", "webdav", "broker"))
+        master = port_process(
+            ["master", f"-port={ports['master']}", f"-mdir={work}/master",
+             f"-volumeSizeLimitMB={limit_mb}",
+             f"-defaultReplication={GW_REPLICATION}"],
+            os.path.join(work, "master.log"))
+        procs.append(master)
+        wait_for(lambda: rpc.call(murl + "/dir/status", timeout=2.0),
+                 "the master", procs)
+        dirs: dict = {}
+        vs_procs: dict = {}
+        for i in range(GW_NODES):
+            port = rpc.free_port()
+            node = f"127.0.0.1:{port}"
+            dirs[node] = os.path.join(work, f"vs{i}")
+            os.makedirs(dirs[node])
+            vs_procs[node] = port_process(
+                ["volume", dev_flag, f"-port={port}", f"-dir={dirs[node]}",
+                 f"-max={GW_MAX_VOLUMES}",
+                 f"-mserver=127.0.0.1:{ports['master']}", "-dataCenter=dc1",
+                 f"-rack=rack{i * GW_RACKS // GW_NODES}"],
+                os.path.join(work, f"vs{i}.log"))
+            procs.append(vs_procs[node])
+        filer = port_process(
+            ["filer", f"-port={ports['filer']}",
+             f"-master=127.0.0.1:{ports['master']}", f"-dir={work}/filer",
+             f"-collection={GW_COLLECTION}"],
+            os.path.join(work, "filer.log"))
+        procs.append(filer)
+        wait_for(lambda: len(rpc.call_status(
+            murl + "/cluster/healthz", timeout=2.0)[1]["nodes"])
+            == GW_NODES, f"{GW_NODES} volume servers", procs)
+        wait_for(lambda: rpc.call(furl + "/", timeout=2.0), "the filer",
+                 procs)
+        # The volume the first writes fill, grown before any writer
+        # (the broker's registration is the first) asks for one; then
+        # the gateways, once the filer they front serves.
+        rpc.call(f"{murl}/vol/grow?count={GW_PREGROW}"
+                 f"&collection={GW_COLLECTION}", "POST")
+        with open(os.path.join(work, "s3.json"), "w") as f:
+            json.dump(s3_identities_doc(), f)
+        gw_args = {
+            "s3": ["s3", f"-port={ports['s3']}",
+                   f"-filer=127.0.0.1:{ports['filer']}",
+                   f"-config={work}/s3.json"],
+            "webdav": ["webdav", f"-port={ports['webdav']}",
+                       f"-filer=127.0.0.1:{ports['filer']}"],
+            "broker": ["msg.broker", f"-port={ports['broker']}",
+                       f"-filer=127.0.0.1:{ports['filer']}"]}
+        gw = {r: port_process(a, os.path.join(work, f"{r}.log"))
+              for r, a in gw_args.items()}
+        procs.extend(gw.values())
+        wait_for(lambda: rpc.call_status(s3url + "/", timeout=2.0)[0]
+                 and rpc.call_status(durl + "/", "OPTIONS",
+                                     timeout=2.0)[0] == 200
+                 and rpc.call(burl + "/status", timeout=2.0),
+                 "the gateways", procs)
+        out["startup_s"] = time.perf_counter() - t_phase
+        admin = S3Client(s3url, *GW_ADMIN)
+        reader = S3Client(s3url, *GW_READER)
+        proxy = FilerProxy(furl)
+        vs_nodes = list(vs_procs)
+        rows: dict = {}  # each volume server's ledger rows at the last step
+        steps_rows: dict = {}
+
+        def step_rows(name, nodes):
+            """K1/K2 launches in the volume servers since the last step,
+            from a beat after this one."""
+            nonlocal rows
+            now = node_device_rows(murl, nodes, time.time(), procs)
+            steps_rows[name] = rows_delta({n: rows[n] for n in nodes}, now)
+            rows = {**rows, **now}
+            return vs_kernel_launches(steps_rows[name])
+
+        # -- 1. write: S3, WebDAV, the broker, the WFS file, filer.copy --
+        data = gateway_data(args.seed, limit_mb)
+        blob = data["blob"]
+        acked: dict = {}  # filer path -> sha256 of what was acknowledged
+        check(admin.call("PUT", f"/{GW_BUCKET}")[0] == 200,
+              "create bucket")
+        objects = {**{k: bytes(blob[o:o + s]) for k, (o, s) in
+                      data["large"].items()}}
+
+        def s3_put(item):
+            key, body = item
+            status, resp = admin.call("PUT", f"/{GW_BUCKET}/{key}",
+                                      body=body, streaming=True)
+            check(status == 200, f"PUT {key}: {status} {resp!r:.200}")
+            acked[f"/buckets/{GW_BUCKET}/{key}"] = \
+                hashlib.sha256(body).hexdigest()
+
+        large_bytes = sum(len(b) for b in objects.values())
+        wall, lat = pool_run(sorted(objects.items()), s3_put, GW_WRITERS)
+        out["walls_s"]["s3_put_large"] = wall
+        out["gb_s"]["s3_put_large"] = large_bytes / wall / 1e9
+        out["s3_put_large_ms"] = {"p50": pct_ms(lat, 50),
+                                  "p99": pct_ms(lat, 99)}
+
+        def multipart(item):
+            key, parts = item
+            status, resp = admin.call("POST", f"/{GW_BUCKET}/{key}",
+                                      "uploads")
+            check(status == 200, f"initiate {key}: {status}")
+            upload = re.search(rb"<UploadId>([^<]+)</UploadId>",
+                               bytes(resp)).group(1).decode()
+            body = b""
+            xml = ["<CompleteMultipartUpload>"]
+            for n, (o, s) in enumerate(parts, 1):
+                piece = bytes(blob[o:o + s])
+                status, _r = admin.call(
+                    "PUT", f"/{GW_BUCKET}/{key}",
+                    f"partNumber={n}&uploadId={upload}", piece,
+                    streaming=True)
+                check(status == 200, f"part {n} of {key}: {status}")
+                xml.append(f"<Part><PartNumber>{n}</PartNumber><ETag>"
+                           f"\"{hashlib.md5(piece).hexdigest()}\"</ETag>"
+                           "</Part>")
+                body += piece
+            xml.append("</CompleteMultipartUpload>")
+            status, resp = admin.call("POST", f"/{GW_BUCKET}/{key}",
+                                      f"uploadId={upload}",
+                                      "".join(xml).encode())
+            check(status == 200 and b"CompleteMultipartUploadResult"
+                  in bytes(resp), f"complete {key}: {status}")
+            objects[key] = body
+            acked[f"/buckets/{GW_BUCKET}/{key}"] = \
+                hashlib.sha256(body).hexdigest()
+
+        mp_bytes = sum(s for parts in data["multipart"].values()
+                       for _o, s in parts)
+        wall, _lat = pool_run(sorted(data["multipart"].items()), multipart,
+                              GW_MULTIPARTS)
+        out["walls_s"]["s3_multipart"] = wall
+        out["gb_s"]["s3_multipart"] = mp_bytes / wall / 1e9
+        small = {k: bytes(blob[o:o + s]) for k, (o, s) in
+                 data["small"].items()}
+        objects.update(small)
+        wall, lat = pool_run(sorted(small.items()), s3_put, GW_WRITERS)
+        out["walls_s"]["s3_put_small"] = wall
+        out["s3_small_puts_per_s"] = len(small) / wall
+        out["s3_put_small_ms"] = {"p50": pct_ms(lat, 50),
+                                  "p99": pct_ms(lat, 99)}
+        objects.update(data["csv"])
+        wall, _lat = pool_run(sorted(data["csv"].items()), s3_put,
+                              GW_WRITERS)
+        out["walls_s"]["s3_put_csv"] = wall
+        s3_bytes = sum(len(b) for b in objects.values())
+        log(f"gateway: {len(objects)} S3 objects, {s3_bytes / MIB:.0f} MiB "
+            f"(large {out['gb_s']['s3_put_large']:.3f} GB/s, multipart "
+            f"{out['gb_s']['s3_multipart']:.3f}, small "
+            f"{out['s3_small_puts_per_s']:.0f} /s)")
+
+        # WebDAV: MKCOL the tree, PUT the files.
+        dav_dirs = sorted({"/dav"} | {d.rsplit("/", 1)[0]
+                                      for d in data["dav_dirs"]}
+                          | set(data["dav_dirs"]))
+        for d in dav_dirs:
+            check(rpc.call_status(durl + d, "MKCOL", timeout=60.0)[0] == 201,
+                  f"MKCOL {d}")
+        dav_bytes = sum(s for _o, s in data["dav"].values())
+
+        def dav_put(path):
+            o, s = data["dav"][path]
+            body = bytes(blob[o:o + s])
+            status, _r = rpc.call_status(durl + path, "PUT", body,
+                                         timeout=600.0)
+            check(status in (200, 201, 204), f"WebDAV PUT {path}: {status}")
+            acked[path] = hashlib.sha256(body).hexdigest()
+
+        wall, _lat = pool_run(sorted(data["dav"]), dav_put, GW_WRITERS)
+        out["walls_s"]["webdav_put"] = wall
+        out["gb_s"]["webdav_put"] = dav_bytes / wall / 1e9
+
+        # The broker: a 4-partition topic, 1 KiB messages from 8 threads.
+        client = MessagingClient(burl)
+        client.configure_topic(GW_NS, GW_TOPIC,
+                               partition_count=GW_PARTITIONS)
+        published: dict = {p: [] for p in range(GW_PARTITIONS)}
+        plock = threading.Lock()
+
+        def publish(i):
+            o = (i * 7919) % (blob.nbytes - GW_MESSAGE_BYTES)
+            value = bytes(blob[o:o + GW_MESSAGE_BYTES])
+            ack = MessagingClient(burl).publish(GW_NS, GW_TOPIC, value,
+                                                key=f"k{i}")
+            with plock:
+                published[ack["partition"]].append(
+                    (ack["ts_ns"], f"k{i}",
+                     hashlib.sha256(value).hexdigest()))
+
+        wall, _lat = pool_run(range(data["messages"]), publish, GW_WRITERS)
+        out["walls_s"]["broker_publish"] = wall
+        out["broker_publish_per_s"] = data["messages"] / wall
+
+        # The mount's WFS in this process: one file in 1 MiB writes at
+        # random offsets.
+        wfs = WFS(furl, collection=GW_COLLECTION)
+        wfs.start()
+        wfs.mkdir("/mnt")
+        fh = wfs.create("/mnt/wfs.bin")
+        base = data["wfs_base"]
+        t0 = time.perf_counter()
+        for b in data["wfs_order"]:
+            off = b * GW_WFS_WRITE
+            wfs.write(fh, bytes(blob[base + off:base + off + GW_WFS_WRITE]),
+                      off)
+        wfs.flush(fh)
+        wfs.release(fh)
+        out["walls_s"]["wfs_write"] = time.perf_counter() - t0
+        wfs_body = bytes(blob[base:base + data["wfs_size"]])
+        acked["/mnt/wfs.bin"] = hashlib.sha256(wfs_body).hexdigest()
+        wfs.stop()
+        wfs = None
+
+        # filer.copy of a seeded local tree, as a process.
+        src = os.path.join(work, "copy_src", "tree")
+        for rel, (o, s) in data["copy"].items():
+            os.makedirs(os.path.dirname(os.path.join(src, rel)),
+                        exist_ok=True)
+            with open(os.path.join(src, rel), "wb") as f:
+                f.write(blob[o:o + s])
+        text, wall, _rss = run_port(
+            ["filer.copy", f"-filer=127.0.0.1:{ports['filer']}", src,
+             "/copied/"], os.path.join(work, "filer-copy.log"),
+            MASTER_LAUNCH, procs)
+        check(f"copied {len(data['copy'])} files" in text,
+              f"filer.copy: {text[-500:]}")
+        out["walls_s"]["filer_copy"] = wall
+        for rel, (o, s) in data["copy"].items():
+            acked[f"/copied/tree/{rel}"] = hashlib.sha256(
+                blob[o:o + s]).hexdigest()
+        out["written"] = {
+            "s3_objects": len(objects), "s3_bytes": s3_bytes,
+            "multipart_uploads": len(data["multipart"]),
+            "webdav_files": len(data["dav"]), "webdav_bytes": dav_bytes,
+            "messages": data["messages"], "wfs_bytes": data["wfs_size"],
+            "copied_files": len(data["copy"])}
+        log(f"gateway: wrote {json.dumps(out['written'])}")
+
+        # -- 2. listings and the read-only identity -----------------------
+        import xml.etree.ElementTree as ET
+        ns3 = "{http://s3.amazonaws.com/doc/2006-03-01/}"
+        t0 = time.perf_counter()
+        listed: dict = {}
+        token, pages = "", 0
+        while True:
+            q = "list-type=2&max-keys=1000" + (
+                f"&continuation-token={urllib.parse.quote(token)}"
+                if token else "")
+            status, body = admin.call("GET", f"/{GW_BUCKET}", q)
+            check(status == 200, f"ListObjectsV2: {status}")
+            root = ET.fromstring(bytes(body))
+            pages += 1
+            for c in root.iter(f"{ns3}Contents"):
+                listed[c.find(f"{ns3}Key").text] = \
+                    int(c.find(f"{ns3}Size").text)
+            if root.find(f"{ns3}IsTruncated").text != "true":
+                break
+            token = root.find(f"{ns3}NextContinuationToken").text
+        out["walls_s"]["list_objects_v2"] = time.perf_counter() - t0
+        check(listed == {k: len(b) for k, b in objects.items()},
+              f"ListObjectsV2: {len(listed)} keys, "
+              f"{len(set(listed) ^ set(objects))} differ from the writes")
+        out["list_objects_v2"] = {"keys": len(listed), "pages": pages}
+        expected: dict = {}
+        for path in [*data["dav"], *(d + "/" for d in dav_dirs)]:
+            parts = path.rstrip("/").split("/")[1:]
+            for k in range(1, len(parts)):
+                parent = "/" + "/".join(parts[:k])
+                expected.setdefault(parent, set()).add(parts[k] + (
+                    "/" if k < len(parts) - 1 or path.endswith("/")
+                    else ""))
+        t0 = time.perf_counter()
+        for d, names in sorted(expected.items()):
+            got = webdav_names(durl, d)
+            check(got == names, f"PROPFIND {d}: {len(got ^ names)} names "
+                                f"differ from the writes")
+        out["walls_s"]["propfind"] = time.perf_counter() - t0
+        status, _r = reader.call("PUT", f"/{GW_BUCKET}/denied.bin",
+                                 body=b"no", streaming=True)
+        check(status == 403, f"read-only PUT answered {status}")
+        small_key = sorted(small)[0]
+        status, body = reader.call("GET", f"/{GW_BUCKET}/{small_key}")
+        check(status == 200 and bytes(body) == small[small_key],
+              f"read-only GET: {status}")
+        out["readonly_put_status"] = 403
+
+        # -- 3. flush the broker; the volume Query RPC on a CSV needle ----
+        def stop_broker() -> None:
+            """SIGTERM the broker (it flushes its partition tails to the
+            filer and removes its registration), then wait until the
+            filer's background pump (one tick a second, in order) has
+            deleted the registration's last chunk: every earlier delete
+            of its rewrites has landed by then, before a volume is
+            sealed for the encode or fsck counts orphans."""
+            registration = (f"/topics/.system/brokers/"
+                            f"{urllib.parse.urlsplit(burl).netloc}")
+            fids = [c["file_id"] for c in
+                    (proxy.meta(registration) or {}).get("chunks", [])]
+            gw["broker"].terminate()
+            check(gw["broker"].wait(60) == 0,
+                  "the broker did not stop cleanly")
+            procs.remove(gw["broker"])
+
+            def gone():
+                for fid in fids:
+                    vid_ = t.parse_file_id(fid)[0]
+                    url = rpc.call(f"{murl}/dir/lookup?volumeId={vid_}")[
+                        "locations"][0]["url"]
+                    if rpc.call_status(f"http://{url}/{fid}",
+                                       timeout=10.0)[0] != 404:
+                        return False
+                return True
+            wait_for(gone, "the delete of the broker's registration", procs)
+
+        stop_broker()
+        path = f"/buckets/{GW_BUCKET}/csv/c00.csv"
+        meta = proxy.meta(path)
+        check(len(meta["chunks"]) == 1, f"{path}: {len(meta['chunks'])} "
+                                        "chunks")
+        fid = meta["chunks"][0]["file_id"]
+        vid = t.parse_file_id(fid)[0]
+        holder = rpc.call(f"{murl}/dir/lookup?volumeId={vid}")[
+            "locations"][0]["url"]
+        t0 = time.perf_counter()
+        got = rpc.call(f"http://{holder}/query", "POST", json.dumps({
+            "fid": fid, "query": GW_SELECT, "input_format": "csv",
+            "csv_header": True}).encode(), timeout=120.0)
+        out["walls_s"]["volume_query"] = time.perf_counter() - t0
+        want = plain_select(data["csv"]["csv/c00.csv"], GW_SELECT_FLOOR)
+        check(bytes(got) == want, "volume Query differs from the plain "
+                                  "evaluation of the same SELECT")
+        out["volume_query"] = {"fid": fid, "rows": want.count(b"\n")}
+
+        # -- every entry's chunks, the volumes that hold them ------------
+        spans: dict = {}  # path -> its chunks' (file id, offset, size)
+
+        def meta_of(path):
+            doc = proxy.meta(path)
+            check(doc is not None, f"{path}: no entry")
+            spans[path] = sorted(((c["file_id"], c["offset"], c["size"])
+                                  for c in doc["chunks"]),
+                                 key=lambda c: c[1])
+
+        seg_paths = []
+        for p in range(GW_PARTITIONS):
+            d = f"/topics/{GW_NS}/{GW_TOPIC}/{p:04d}"
+            seg_paths += [f"{d}/{e['name']}" for e in proxy.list_all(d)
+                          if e["name"].endswith(".seg")]
+        pool_run(sorted(acked) + seg_paths, meta_of, GW_WRITERS)
+        chunks = {p: [f for f, _o, _s in c] for p, c in spans.items()}
+        named = namespace_keys(proxy)
+        vids = sorted(named)
+
+        # -- 4. lock; ec.encode (K2 in the holders) -----------------------
+        env = CommandEnv(murl, filer_url=furl, device=dev)
+        reference, ref_k = encode_sealed_copies(env, vids, work, dev)
+        dat_bytes = {v: reference[v]["dat_bytes"] for v in vids}
+        full = [v for v in vids
+                if dat_bytes[v] >= limit * GW_FULL_PERCENT / 100]
+        check(len(full) >= 1, f"no volume filled: {dat_bytes}")
+        out["volumes"] = {"encoded": vids, "full": full,
+                          "dat_bytes": {str(v): n
+                                        for v, n in dat_bytes.items()}}
+        want_k2 = sum(k.get("rs_bitmatrix_crc", 0) for k in ref_k.values())
+        want_k1 = sum(k.get("rs_bitmatrix", 0) for k in ref_k.values())
+        rows = node_device_rows(murl, vs_nodes, time.time(), procs)
+        shell_out, wall, _rss = run_port(
+            ["shell", dev_flag, f"-master=127.0.0.1:{ports['master']}",
+             "lock", "ec.encode -volumeId " + ",".join(map(str, vids))],
+            os.path.join(work, "shell-encode.log"), MASTER_LAUNCH, procs)
+        for v in vids:
+            check(f"volume {v} -> ec shards" in shell_out,
+                  f"shell ec.encode: {shell_out[-2000:]}")
+        out["walls_s"]["encode"] = wall
+        out["gb_s"]["encode"] = sum(dat_bytes.values()) / wall / 1e9
+        got = step_rows("encode", vs_nodes)
+        out["launches"]["encode"] = {"volume_servers": got}
+        check(set(steps_rows["encode"]) <= {"encode_crc_kernel",
+                                            "encode_kernel"}
+              and got == {"rs_bitmatrix": want_k1,
+                          "rs_bitmatrix_crc": want_k2},
+              f"encode rows {steps_rows['encode']}, expected K2 {want_k2} "
+              f"and K1 {want_k1} (write_ec_files of the same .dat here)")
+        check(want_k2 > 0, "the holders' encode launched no K2")
+        holders, ecc_checked = check_encoded_shards(env, dirs, reference)
+        out["shards_checked"] = 14 * len(vids)
+        out["ecc_entries_checked"] = ecc_checked
+        log(f"gateway: encoded {vids} (full {full}) in {wall:.1f} s, "
+            f"{want_k2} K2 in the holders")
+
+        # -- 5. kill -9 a holder of 3 or more shards of a volume ----------
+        def held(node):
+            return {v: sorted(s for s, n in holders[v].items() if n == node)
+                    for v in vids}
+        victim = max(vs_nodes, key=lambda n: (
+            max(len(s) for s in held(n).values()),
+            sum(len(s) for s in held(n).values())))
+        lost = {v: s for v, s in held(victim).items() if s}
+        check(max(map(len, lost.values())) >= 3,
+              f"no holder has 3 shards of a volume: {lost}")
+        out["killed"] = {"node": victim,
+                         "shards": {str(v): s for v, s in lost.items()}}
+        lost_sha = {(v, s): reference[v]["shards"][s]
+                    for v, ss in lost.items() for s in ss}
+        vs_procs[victim].kill()
+        vs_procs[victim].wait(30)
+        procs.remove(vs_procs[victim])
+        live = [n for n in vs_nodes if n != victim]
+        evs = {v: EcVolume(reference[v]["base"], vid=v, device=dev)
+               for v in vids}
+        # New writes (the broker's registration) must not land on the
+        # dead node's volumes: wait for the master's sweep first.
+        wait_for(lambda: victim not in {
+            n["url"] for n in env.data_nodes()}, "the dead-node sweep",
+            procs, timeout=120.0)
+
+        def cache_doc():
+            return rpc.call(furl + "/debug/cache?fids=1", timeout=60.0)
+
+        def degraded_pass(name, fids, items, work_fn, exact=True):
+            """One gateway's read pass after the kill: K1 in the
+            survivors from a beat after it, reconciled with the lost
+            intervals of the chunks it reads, less those the filer's
+            chunk cache held before it."""
+            before = cache_doc()
+            resident = {f for f, _n in before["resident"]}
+            need = lost_intervals(evs, lost, fids)
+            need_hits = lost_intervals(evs, lost,
+                                       [f for f in fids if f in resident])
+            # Each lost interval of a chunk the cache did not hold is
+            # rebuilt at least once; a chunk read twice in the pass may
+            # be a hit the second time.
+            need_first = lost_intervals(evs, lost, set(fids) - resident)
+            wall, lat = pool_run(items, work_fn, GW_WRITERS)
+            after = cache_doc()
+            k1 = step_rows(name, live)
+            hits = {"hit_bytes": after["chunk_cache"]["hit_bytes"]
+                    - before["chunk_cache"]["hit_bytes"],
+                    "resident_chunks_before": len(resident & set(fids)),
+                    "lost_intervals_of_resident_chunks": need_hits}
+            out["launches"][name] = {"volume_servers": k1,
+                                     "lost_intervals_read": need,
+                                     "lost_intervals_uncached": need_first,
+                                     "chunk_cache": hits}
+            out["walls_s"][name] = wall
+            check(set(steps_rows[name]) <= {"reconstruct_kernel"},
+                  f"{name}: rows {steps_rows[name]}")
+            lo_ok = k1["rs_bitmatrix"] >= need_first
+            hi_ok = not exact or k1["rs_bitmatrix"] <= need
+            check(lo_ok and hi_ok,
+                  f"{name}: {k1['rs_bitmatrix']} K1 in the survivors; the "
+                  f"chunks read hold {need} lost intervals, {need_first} "
+                  f"on chunks the cache did not hold")
+            check(need_first == 0 or k1["rs_bitmatrix"] > 0,
+                  f"{name}: no K1 for {need_first} lost intervals of "
+                  f"chunks the cache did not hold")
+            return wall, lat
+
+        # -- 6. read everything back through every gateway ----------------
+        def s3_fids(keys):
+            return [f for k in keys
+                    for f in chunks[f"/buckets/{GW_BUCKET}/{k}"]]
+
+        # S3 Select over each CSV object (reads through the filer).
+        def select(key):
+            req = ("<SelectObjectContentRequest><Expression>"
+                   f"{GW_SELECT.replace('>', '&gt;')}</Expression>"
+                   "<ExpressionType>SQL</ExpressionType>"
+                   "<InputSerialization><CSV><FileHeaderInfo>USE"
+                   "</FileHeaderInfo></CSV></InputSerialization>"
+                   "<OutputSerialization><JSON/></OutputSerialization>"
+                   "</SelectObjectContentRequest>").encode()
+            status, body = admin.call("POST", f"/{GW_BUCKET}/{key}",
+                                      "select&select-type=2", req)
+            check(status == 200, f"Select {key}: {status}")
+            check(s3_event_records(bytes(body)) == plain_select(
+                data["csv"][key], GW_SELECT_FLOOR),
+                f"Select {key} differs from the plain evaluation")
+
+        csv_keys = sorted(data["csv"])
+        wall, _lat = degraded_pass("s3_select", s3_fids(csv_keys), csv_keys,
+                                   select)
+        out["select_mb_s"] = sum(len(data["csv"][k]) for k in csv_keys) \
+            / wall / 1e6
+
+        # 300 ranges across chunk boundaries of multi-chunk objects,
+        # before the whole objects: their chunks' first reads.
+        keys = sorted(objects)
+        multi = sorted(k for k in keys
+                       if len(spans[f"/buckets/{GW_BUCKET}/{k}"]) > 1)
+        rng = np.random.default_rng(args.seed + 131)
+        ranges = []
+        for _ in range(GW_RANGES):
+            k = multi[int(rng.integers(len(multi)))]
+            cs = spans[f"/buckets/{GW_BUCKET}/{k}"]
+            cut = cs[1 + int(rng.integers(len(cs) - 1))][1]
+            lo_ = max(0, cut - int(rng.integers(1, 256 << 10)))
+            hi_ = min(len(objects[k]),
+                      cut + int(rng.integers(1, 256 << 10))) - 1
+            # Every chunk the range touches, once per range.
+            ranges.append((k, lo_, hi_, [f for f, o, s in cs
+                                         if o <= hi_ and o + s > lo_]))
+
+        def s3_range(item):
+            k, lo_, hi_, _f = item
+            status, body = admin.call("GET", f"/{GW_BUCKET}/{k}",
+                                      headers={"Range": f"bytes={lo_}-{hi_}"})
+            check(status == 206 and bytes(body) == objects[k][lo_:hi_ + 1],
+                  f"range {lo_}-{hi_} of {k}: {status}")
+
+        wall, lat = degraded_pass(
+            "s3_ranges", [f for r in ranges for f in r[3]], ranges, s3_range,
+            exact=True)
+        out["s3_range_ms"] = {"p50": pct_ms(lat, 50), "p99": pct_ms(lat, 99),
+                              "reads": len(lat)}
+
+        def s3_get(key):
+            status, body = admin.call("GET", f"/{GW_BUCKET}/{key}")
+            check(status == 200 and hashlib.sha256(bytes(body)).hexdigest()
+                  == acked[f"/buckets/{GW_BUCKET}/{key}"],
+                  f"GET {key}: {status}, bytes differ from the write")
+
+        wall, lat = degraded_pass("s3_get_all", s3_fids(keys), keys, s3_get)
+        out["gb_s"]["s3_get_all"] = s3_bytes / wall / 1e9
+        out["degraded_s3_get_ms"] = {"p50": pct_ms(lat, 50),
+                                     "p99": pct_ms(lat, 99),
+                                     "reads": len(lat)}
+
+        def dav_get(path):
+            status, body = rpc.call_status(durl + path, timeout=600.0)
+            check(status == 200 and hashlib.sha256(bytes(body)).hexdigest()
+                  == acked[path], f"WebDAV GET {path}: {status}")
+
+        dav_paths = sorted(data["dav"])
+        wall, _lat = degraded_pass(
+            "webdav_get_all", [f for p in dav_paths for f in chunks[p]],
+            dav_paths, dav_get)
+        out["gb_s"]["webdav_get_all"] = dav_bytes / wall / 1e9
+
+        # The broker again (its tails were flushed to the filer): every
+        # message from offset 0 of every partition, in order.
+        # On a new port: the first one may be some connection's
+        # ephemeral port by now.
+        ports["broker"] = rpc.free_port()
+        burl = f"http://127.0.0.1:{ports['broker']}"
+        gw["broker"] = port_process(
+            ["msg.broker", f"-port={ports['broker']}",
+             f"-filer=127.0.0.1:{ports['filer']}"],
+            os.path.join(work, "broker2.log"))
+        procs.append(gw["broker"])
+        wait_for(lambda: rpc.call(burl + "/status", timeout=2.0),
+                 "the restarted broker", procs)
+        consumed: dict = {}
+
+        def consume(p):
+            c = MessagingClient(burl)
+            since, got = 0, []
+            while True:
+                page = c.fetch(GW_NS, GW_TOPIC, p, since_ns=since)
+                if not page["messages"]:
+                    break
+                got += [(m["ts_ns"], m["key"],
+                         hashlib.sha256(m["value"]).hexdigest())
+                        for m in page["messages"]]
+                since = page["messages"][-1]["ts_ns"]
+            consumed[p] = got
+
+        seg_fids = [f for p in seg_paths for f in chunks[p]]
+        wall, _lat = degraded_pass("broker_consume", seg_fids,
+                                   range(GW_PARTITIONS), consume,
+                                   exact=False)
+        for p in range(GW_PARTITIONS):
+            check(consumed[p] == sorted(published[p]),
+                  f"partition {p}: {len(consumed[p])} messages read, "
+                  f"{len(published[p])} published, or out of order")
+        out["broker_consume_per_s"] = data["messages"] / wall
+
+        # The mount: a fresh WFS (empty meta cache) reads the file whole
+        # through its own chunk streamer (this process's chunk cache
+        # emptied first).
+        chunk_cache.CACHE.reset()
+
+        def wfs_read(path):
+            m = WFS(furl, collection=GW_COLLECTION)
+            m.start()
+            try:
+                fh = m.open(path)
+                body = m.read(fh, data["wfs_size"], 0)
+                m.release(fh)
+            finally:
+                m.stop()
+            check(hashlib.sha256(body).hexdigest() == acked[path],
+                  "the WFS file reads back differently")
+
+        degraded_pass("wfs_read", chunks["/mnt/wfs.bin"], ["/mnt/wfs.bin"],
+                      wfs_read)
+
+        # filer.replicate -once of the copied tree into a local sink.
+        sink = os.path.join(work, "sink")
+        copy_paths = sorted(p for p in acked if p.startswith("/copied/"))
+
+        def replicate(_):
+            text, _w, _r = run_port(
+                ["filer.replicate", f"-filer=127.0.0.1:{ports['filer']}",
+                 "-source.dir=/copied", f"-sink=local://{sink}", "-once"],
+                os.path.join(work, "filer-replicate.log"), MASTER_LAUNCH,
+                procs)
+            for p in copy_paths:
+                local = os.path.join(sink, p[len("/copied/"):])
+                check(os.path.exists(local)
+                      and sha256_file(local) == acked[p],
+                      f"replicated {p} differs or is missing")
+
+        wall, _lat = degraded_pass(
+            "filer_replicate", [f for p in copy_paths for f in chunks[p]],
+            [0], replicate)
+        out["replicate_s"] = wall
+
+        # -- 7. stop the broker; ec.rebuild; volume.fsck -orphans ---------
+        out["rss_mib"].update({r: rss_mib(p.pid) for r, p in gw.items()})
+        out["rss_mib"]["filer"] = rss_mib(filer.pid)
+        stop_broker()
+        run_command(env, "lock")
+        t0 = time.perf_counter()
+        msg = run_command(env, "ec.rebuild")
+        out["walls_s"]["rebuild"] = time.perf_counter() - t0
+        run_command(env, "unlock")
+        for v, ss in lost.items():
+            files_ = shard_files({n: dirs[n] for n in live}, v)
+            check(sorted(files_) == list(range(14)),
+                  f"volume {v} after rebuild: {sorted(files_)}; {msg}")
+            for sid in ss:
+                check(sha256_file(files_[sid][1]) == lost_sha[(v, sid)],
+                      f"rebuilt shard {v}.{sid} differs from its original")
+        out["launches"]["rebuild"] = {
+            "volume_servers": step_rows("rebuild", live)}
+        t0 = time.perf_counter()
+        fsck = run_command(env, "volume.fsck -orphans")
+        out["walls_s"]["fsck"] = time.perf_counter() - t0
+        out["fsck"] = fsck
+        check(fsck.endswith(", 0 missing, 0 orphans"),
+              f"volume.fsck: {fsck[:2000]}")
+
+        # -- 8. X4 on the card --------------------------------------------
+        out["x4"] = phase_x4(torch, dev, args.seed,
+                             max(X4_MIB * MIB * limit_mb // 1024, 1 << 20),
+                             work)
+        out["rss_mib"]["chip_smoke"] = rss_mib(os.getpid())
+        totals = {"rs_bitmatrix": 0, "rs_bitmatrix_crc": 0}
+        for s in out["launches"].values():
+            for k in totals:
+                totals[k] += s["volume_servers"].get(k, 0)
+        totals["rs_bitmatrix"] += sum(
+            sum(v) for v in out["x4"]["k1_launches"].values())
+        out["launch_totals"] = totals
+        check(all(totals.values()), f"phase 13 launches {totals}")
+    finally:
+        for ev in evs.values():
+            ev.close()
+        if wfs is not None:
+            wfs.stop()
+        if env is not None:
+            env.close()
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"gateway cluster: {json.dumps(out['walls_s'])}")
     return out
 
 
@@ -4457,6 +5622,8 @@ def main() -> int:
                     help="the HA cluster's volume size limit, MiB")
     ap.add_argument("--filer-mib", type=int, default=FILER_LIMIT_MB,
                     help="the filer cluster's volume size limit, MiB")
+    ap.add_argument("--gateway-mib", type=int, default=GW_LIMIT_MB,
+                    help="the gateway cluster's volume size limit, MiB")
     args = ap.parse_args()
 
     import torch
@@ -4493,6 +5660,7 @@ def main() -> int:
         live = phase_live_cluster(torch, dev, args)
         ha = phase_ha_cluster(torch, dev, args)
         filer = phase_filer_cluster(torch, dev, args)
+        gateway = phase_gateway_cluster(torch, dev, args)
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
@@ -4545,6 +5713,12 @@ def main() -> int:
             k1, at["degraded_read_all"]["volume_servers"][k1],
             "at_10_to_1_1mib")})
 
+    at = gateway["launches"]
+    gateway["device_busy_share"] = busy_share(timings, gateway["walls_s"], {
+        "encode": (k2, at["encode"]["volume_servers"][k2], None),
+        **{step: (k1, at[step]["volume_servers"][k1], "at_10_to_1_1mib")
+           for step in GW_PASSES}})
+
     kernels = [
         {"name": "rs_bitmatrix", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix.cu",
@@ -4557,7 +5731,8 @@ def main() -> int:
          + cluster["window_launches"]["rs_bitmatrix"]
          + live["launch_totals"]["rs_bitmatrix"]
          + ha["launch_totals"]["rs_bitmatrix"]
-         + filer["launch_totals"]["rs_bitmatrix"],
+         + filer["launch_totals"]["rs_bitmatrix"]
+         + gateway["launch_totals"]["rs_bitmatrix"],
          "max_abs_err": kern["k1_err"], **timings["rs_bitmatrix"]},
         {"name": "rs_bitmatrix_crc", "route": "cuda",
          "source": "seaweedfs_tpu_torch/csrc/rs_bitmatrix_crc.cu",
@@ -4570,7 +5745,8 @@ def main() -> int:
          + cluster["window_launches"]["rs_bitmatrix_crc"]
          + live["launch_totals"]["rs_bitmatrix_crc"]
          + ha["launch_totals"]["rs_bitmatrix_crc"]
-         + filer["launch_totals"]["rs_bitmatrix_crc"],
+         + filer["launch_totals"]["rs_bitmatrix_crc"]
+         + gateway["launch_totals"]["rs_bitmatrix_crc"],
          "max_abs_err": kern["k2_err"], **timings["rs_bitmatrix_crc"]},
     ]
     obs = phase_observability(torch, probe, main_path, batch, storage, timings)
@@ -4584,6 +5760,7 @@ def main() -> int:
     print(json.dumps({"live_cluster": live}))
     print(json.dumps({"ha_cluster": ha}))
     print(json.dumps({"filer_cluster": filer}))
+    print(json.dumps({"gateway_cluster": gateway}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

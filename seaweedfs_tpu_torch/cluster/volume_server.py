@@ -16,9 +16,6 @@ Every EC coder this server builds (generate, mount, rebuild, startup
 discovery) runs on `device` ("cuda" by default; "cpu" runs the kernels'
 plain versions), resolved before any socket is bound, so a server asked
 for a card that is not there refuses to start.
-
-Not ported yet: the /query route's SELECT engine waits for ROADMAP
-queue 1 slice 11b and answers 501.
 """
 
 from __future__ import annotations
@@ -2879,12 +2876,35 @@ class VolumeServer:
         """The volume Query RPC (pb/volume_server.proto:92,
         server/volume_grpc_query.go): run a SELECT over one stored
         object's bytes.  Body: {fid, query, input_format, csv_header,
-        csv_delimiter, output_format}.  The SELECT engine is not
-        ported yet (ROADMAP queue 1, slice 11b): 501, never a fake
-        answer."""
-        raise rpc.RpcError(
-            501, "the volume Query RPC's SELECT engine is not ported yet "
-                 "(ROADMAP queue 1, slice 11b)")
+        csv_delimiter, output_format}.  A needle of an erasure-coded
+        volume is read through the EC ladder (local shard, remote
+        shard, reconstruction), as a GET of it is; the JAX package
+        looks only at plain volumes and answers 404 there."""
+        from ..query import run_query
+        from ..query.sql import SqlError
+        req = json.loads(body)
+        vid, key, cookie = t.parse_file_id(req["fid"])
+        v = self.store.find_volume(vid)
+        if v is None:
+            ev = self.ec_volumes.get(vid)
+            if ev is None:
+                raise rpc.RpcError(404, f"volume {vid} not on this server")
+            n = self._ec_read(ev, key, cookie)
+        else:
+            try:
+                n = self.store.read_needle(vid, key, cookie)
+            except NotFoundError as e:
+                raise rpc.RpcError(404, str(e)) from None
+        try:
+            out = run_query(
+                n.data, req["query"],
+                input_format=req.get("input_format", "json"),
+                csv_header=req.get("csv_header", True),
+                csv_delimiter=req.get("csv_delimiter", ","),
+                output_format=req.get("output_format", "json"))
+        except (SqlError, ValueError) as e:
+            raise rpc.RpcError(400, str(e)) from None
+        return (200, out, {"Content-Type": "application/octet-stream"})
 
     def _volume_file(self, query: dict, body: bytes):
         """Stream a whole .dat/.idx/.vif file — the VolumeCopy/CopyFile RPC

@@ -88,12 +88,12 @@ def register(cmd: Command) -> None:
 
 
 def _load_all() -> None:
-    # Import for registration side effects.  Only the commands the port
-    # has register: mount and the replication tools arrive with slice
-    # 11b (ROADMAP queue 1).
+    # Import for registration side effects.
     from . import benchmark_cmd  # noqa: F401
     from . import client_cmds  # noqa: F401
+    from . import mount_cmd  # noqa: F401
     from . import offline_cmds  # noqa: F401
+    from . import replication_cmds  # noqa: F401
     from . import servers  # noqa: F401
 
 

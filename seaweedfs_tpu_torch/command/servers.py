@@ -1,15 +1,14 @@
-"""Server-role subcommands of the port: `master`, `volume`, `filer` and
-the all-in-one `server` (reference: weed/command/master.go, volume.go,
-filer.go, server.go; seaweedfs_tpu/command/servers.py).
+"""Server-role subcommands of the port: `master`, `volume`, `filer`,
+`msg.broker`, `s3`, `webdav` and the all-in-one `server` (reference:
+weed/command/master.go, volume.go, filer.go, msg_broker.go, s3.go,
+webdav.go, server.go; seaweedfs_tpu/command/servers.py).
 
 Each starts its in-process server(s) and blocks until SIGINT/SIGTERM.
 `volume` and `server` take `-device=cuda|cpu` (default cuda): the device
 every EC coder of the volume server runs on; without a card, `cuda`
 refuses to start.  Each role also serves its wire-compatible gRPC plane
 on its http port + 10000 where grpcio and protobuf are installed, and
-logs that the plane is off where they are not.  The S3, WebDAV and
-broker roles, and `server`'s -s3/-webdav, wait for ROADMAP queue 1
-slice 11b.
+logs that the plane is off where they are not.
 
 Global flags every server role honors (parsed by the dispatcher,
 command/__init__.py, before the role starts):
@@ -345,6 +344,22 @@ def run_volume(flags: Flags, args: list[str]) -> int:
                          grace=flags.get_float("shutdown.grace", 30.0))
 
 
+def run_msg_broker(flags: Flags, args: list[str]) -> int:
+    from ..messaging.broker import MessageBroker
+    filer = flags.get("filer", "127.0.0.1:8888")
+    mb = MessageBroker(
+        filer if filer.startswith("http") else f"http://{filer}",
+        host=flags.get("ip", "127.0.0.1"),
+        port=flags.get_int("port", 17777),
+        ssl_context=_security("msg_broker"))
+    mb.start()
+    glog.infof("message broker serving at %s", mb.url())
+    g = _start_grpc_plane(
+        mb, flags, flags.get("ip", "127.0.0.1"), "msg_broker",
+        "pb.messaging_grpc.MessagingGrpcServer")
+    return _wait_forever([mb] + ([g] if g else []))
+
+
 def run_filer(flags: Flags, args: list[str]) -> int:
     from ..filer.server import FilerServer
     fs = FilerServer(
@@ -390,17 +405,50 @@ def run_filer(flags: Flags, args: list[str]) -> int:
     return _wait_forever([fs] + ([g] if g else []))
 
 
+def _s3_identities(config_path: str):
+    """Load identities from the reference's JSON config shape
+    (s3api/auth_credentials.go); None (no -config flag) lets the
+    gateway fall back to filer-backed IAM."""
+    import json
+
+    from ..s3api.auth import identities_from_dict
+    if not config_path:
+        return None
+    with open(config_path) as f:
+        return identities_from_dict(json.load(f))
+
+
+def run_s3(flags: Flags, args: list[str]) -> int:
+    from ..s3api.server import S3ApiServer
+    s3 = S3ApiServer(
+        filer_url=_norm_master(flags.get("filer", "127.0.0.1:8888")),
+        host=flags.get("ip", "127.0.0.1"),
+        port=flags.get_int("port", 8333),
+        identities=_s3_identities(flags.get("config")),
+        metrics_port=flags.get_int("metricsPort", 0) or None,
+        ssl_context=_security("s3"))
+    s3.start()
+    glog.infof("s3 gateway serving at %s", s3.server.url())
+    return _wait_forever([s3])
+
+
+def run_webdav(flags: Flags, args: list[str]) -> int:
+    from ..webdav.server import WebDavServer
+    dav = WebDavServer(
+        filer_url=_norm_master(flags.get("filer", "127.0.0.1:8888")),
+        host=flags.get("ip", "127.0.0.1"),
+        port=flags.get_int("port", 7333),
+        metrics_port=flags.get_int("metricsPort", 0) or None,
+        ssl_context=_security("webdav"))
+    dav.start()
+    glog.infof("webdav serving at %s", dav.server.url())
+    return _wait_forever([dav])
+
+
 def run_server(flags: Flags, args: list[str]) -> int:
-    """All-in-one: master + volume [+ filer].  The S3 and WebDAV roles
-    wait for slice 11b: asking for them raises NotImplementedError
-    before anything starts."""
+    """All-in-one: master + volume [+ filer [+ s3] [+ webdav]]."""
     from ..cluster.master import MasterServer as Master
     from ..cluster.volume_server import VolumeServer
-    for role in ("s3", "webdav"):
-        if flags.get_bool(role, False):
-            raise NotImplementedError(
-                f"server -{role}: the {role} role is not ported yet "
-                "(ROADMAP queue 1, slice 11b)")
     device = _device_flag(flags)
     servers: list = []
     ip = flags.get("ip", "127.0.0.1")
@@ -491,6 +539,24 @@ def run_server(flags: Flags, args: list[str]) -> int:
         fg = _start_filer_grpc(fs, flags, ip, allow_port_flag=False)
         if fg:
             servers.append(fg)
+        if flags.get_bool("s3", False):
+            from ..s3api.server import S3ApiServer
+            s3 = S3ApiServer(filer_url=fs.server.url(), host=ip,
+                             port=flags.get_int("s3.port", 8333),
+                             identities=_s3_identities(
+                                 flags.get("s3.config")),
+                             ssl_context=_security("s3"))
+            s3.start()
+            servers.append(s3)
+            glog.infof("s3 at %s", s3.server.url())
+        if flags.get_bool("webdav", False):
+            from ..webdav.server import WebDavServer
+            dav = WebDavServer(filer_url=fs.server.url(), host=ip,
+                               port=flags.get_int("webdav.port", 7333),
+                               ssl_context=_security("webdav"))
+            dav.start()
+            servers.append(dav)
+            glog.infof("webdav at %s", dav.server.url())
     return _wait_forever(servers,
                          grace=flags.get_float("shutdown.grace", 30.0))
 
@@ -533,11 +599,18 @@ register(Command("filer", "filer -port=8888 -master=host:9333"
                  " [-filer.cache.tenant.mb=0]"
                  " [-pulseSeconds=5] [-filer.ha.dir=...]",
                  "start a filer server", run_filer))
+register(Command("msg.broker", "msg.broker -port=17777 -filer=host:8888",
+                 "start a pub/sub message broker", run_msg_broker))
+register(Command("s3", "s3 -port=8333 -filer=host:8888",
+                 "start an S3-compatible gateway", run_s3))
+register(Command("webdav", "webdav -port=7333 -filer=host:8888",
+                 "start a WebDAV gateway", run_webdav))
 register(Command("server",
                  "server -dir=/data [-device=cuda|cpu] [-filer=true]"
+                 " [-s3=true] [-s3.config=identities.json] [-webdav=true]"
                  " [-transport=aio|threads]"
                  " [-lifecycle.rules=rules.txt]"
                  " [-tenant.rules=tenants.txt]"
                  " [-tier.cache.mb=64] [-tier.promote.hits=0]",
-                 "start master+volume(+filer) in one process",
+                 "start master+volume(+filer+s3+webdav) in one process",
                  run_server))

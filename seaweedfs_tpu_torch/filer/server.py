@@ -206,17 +206,12 @@ class FilerServer:
                            meta_log_dir=meta_log_dir,
                            fetch_chunk_fn=self.streamer._fetch)
         # notification.toml: publish every meta event to the configured
-        # queue (filer_notify.go + notification/configuration.go).  A
-        # queue the port has not ported yet (Kafka, Pub/Sub) stops the
-        # filer here; any other broken config is logged, as in the
-        # reference.
+        # queue (filer_notify.go + notification/configuration.go).
         try:
             from ..replication.notification import queue_from_config
             from ..utils.config import load_configuration
             self.filer.notification_queue = queue_from_config(
                 load_configuration("notification"))
-        except NotImplementedError:
-            raise
         except Exception as e:  # noqa: BLE001 — a broken notification
             from ..utils import glog  # config must not kill the filer
             glog.warningf("notification queue disabled: %s", e)

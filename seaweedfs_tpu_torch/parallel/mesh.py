@@ -11,6 +11,11 @@ into one block per device — volumes over "vol", columns over "col" —
 with no bytes moving between devices (`volume_blocks`).  A result laid
 out that way is a `MeshArray`, the counterpart of a jax.Array sharded
 by `volume_sharding`; `np.asarray` gathers it on the host.
+
+The multi-card reconstructions (`sharded_codec.all_to_all_reconstruct`,
+`ring_reconstruct`) run one process per card over `torch.distributed`
+instead of one grid: their survivor stacks are split by shard rows over
+the ranks (`shard_row_block`, the counterpart of `shard_row_sharding`).
 """
 
 from __future__ import annotations
@@ -92,3 +97,13 @@ class MeshArray:
     def __array__(self, dtype=None, copy=None):
         out = self.numpy()
         return out if dtype is None else out.astype(dtype)
+
+
+def shard_row_block(stacked, rank: int, world: int):
+    """Rank `rank`'s block of a (V, S, N) survivor stack whose shard rows
+    S are split over `world` ranks: rows [rank*S/world, (rank+1)*S/world),
+    whole shards, as hosts hold them in the cluster.  The counterpart of
+    the JAX package's `shard_row_sharding` (P("vol", "col", None) with
+    the ranks as the "col" axis)."""
+    rows = stacked.shape[1] // world
+    return stacked[:, rank * rows:(rank + 1) * rows, :]

@@ -36,8 +36,16 @@ While `roofline.ARMED`, each launch of a step is bracketed by a
 copies done, and the pipelines of `cluster_encode`/`cluster_rebuild`
 hand that to `record_fenced_batch`.
 
-The multi-card collectives (`all_to_all_reconstruct`,
-`ring_reconstruct`) have no counterpart here yet.
+The multi-card reconstructions (X4) run one process per card over
+`torch.distributed` (NCCL between cards, gloo on the CPU or between ranks
+that share a card): every rank of the group calls
+`all_to_all_reconstruct` or `ring_reconstruct` with the same arguments,
+holds the shard rows `mesh.shard_row_block` gives it, and gets back its
+column block of the output, (V, W, N/D) for D ranks (rank order is
+column order, as the JAX package's result is sharded).  Each rank's
+local solve is one K1 launch (`coder_cuda.apply_bitmatrix`), or its
+plain version for a CPU tensor.  Over gloo a card's tensors cross
+through host copies.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from ..ops.coder_cuda import (BLOCK_N, apply_bitmatrix, apply_bitmatrix_crc,
                               pack_bitmatrix, pack_crc_tables, plane_major)
 from ..ops.erasure import resolve_device
 from ..stats import roofline as _roofline
-from .mesh import Mesh, MeshArray, volume_blocks
+from .mesh import Mesh, MeshArray, shard_row_block, volume_blocks
 
 # K1 on a card takes widths in multiples of 16 bytes: a block of another
 # width is zero-padded for the launch and cut back after.
@@ -365,3 +373,145 @@ def batched_reconstruct_with_crc(stacked, present: tuple[int, ...],
     cd = _codec_of(10, 4, "vandermonde", codec)
     step = reconstruct_step(stacked, present, wanted, mesh, cd, True, device)
     return step.array(), step.crcs()
+
+
+# -- X4: shard-major reconstruction across ranks ------------------------------
+
+def _shard_major_prep(stacked, present, wanted, group, data_shards,
+                      parity_shards, matrix_kind, device):
+    """Shared prologue of the shard-major reconstructions: the decode
+    bit matrix in plane-major order (8W, 8K), the survivors validated as
+    the JAX package validates them, and this rank's shard rows on
+    `device`.  Returns (pm, block, rank, ranks, chunk)."""
+    import torch.distributed as dist
+
+    from ..ops import rs_bitmatrix
+    total = data_shards + parity_shards
+    bmat, _used = rs_bitmatrix.decode_bitmatrix(
+        data_shards, total, tuple(present), tuple(wanted), matrix_kind)
+    pm = plane_major(np.asarray(bmat), len(wanted), data_shards)
+    n_axis = dist.get_world_size(group)
+    if data_shards % n_axis != 0:
+        raise ValueError(
+            f"data_shards {data_shards} must divide over mesh col axis "
+            f"{n_axis}")
+    stacked = _as_batch(stacked)
+    _v, s, n = stacked.shape
+    if s != data_shards:
+        raise ValueError(
+            f"stacked must carry the {data_shards} used survivor rows, "
+            f"got {s}")
+    if n % n_axis != 0:
+        raise ValueError(f"byte length {n} must divide over {n_axis}")
+    rank = dist.get_rank(group)
+    dev = resolve_device(device)
+    block = shard_row_block(stacked, rank, n_axis).contiguous().to(dev)
+    return pm, block, rank, n_axis, n // n_axis
+
+
+def _wire(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` as the group's backend carries it: gloo moves host tensors."""
+    import torch.distributed as dist
+    if t.device.type == "cuda" and dist.get_backend(group) == "gloo":
+        return t.cpu()
+    return t.contiguous()
+
+
+def _all_to_all(got: list, parts: list, group) -> None:
+    """got[j] <- rank j's parts[this rank], for every rank j: the
+    all-to-all as send/recv pairs, which NCCL and gloo both run (gloo
+    lacks alltoall in some torch builds)."""
+    import torch.distributed as dist
+    me = dist.get_rank(group)
+    got[me].copy_(parts[me])
+    ops = []
+    for j in range(dist.get_world_size(group)):
+        if j == me:
+            continue
+        peer = dist.get_global_rank(group, j) if group is not None else j
+        ops.append(dist.P2POp(dist.isend, parts[j], peer, group))
+        ops.append(dist.P2POp(dist.irecv, got[j], peer, group))
+    for r in dist.batch_isend_irecv(ops):
+        r.wait()
+
+
+def _solve(masks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One K1 launch (or its plain version) of packed `masks` over the
+    (V, k, n) batch x on its device."""
+    return _step(x, None, x.device, masks, False).array()
+
+
+def all_to_all_reconstruct(stacked, present: tuple[int, ...],
+                           wanted: tuple[int, ...], group=None,
+                           data_shards: int = 10, parity_shards: int = 4,
+                           matrix_kind: str = "vandermonde",
+                           device="cuda") -> torch.Tensor:
+    """Reconstruction when the survivors live shard-major on the ranks.
+
+    stacked: the (V, data_shards, N) survivor stack; this rank keeps the
+    whole shard rows `shard_row_block` gives it.  One `all_to_all` swaps
+    shard rows for column blocks (every rank sends each other rank its
+    rows' slice of that rank's columns), then each rank solves its column
+    block locally with the full decode matrix.  Returns this rank's
+    (V, W, N/D) column block, on `device`."""
+    import torch.distributed as dist
+    pm, block, _rank, ranks, chunk = _shard_major_prep(
+        stacked, present, wanted, group, data_shards, parity_shards,
+        matrix_kind, device)
+    parts = [_wire(block[:, :, j * chunk:(j + 1) * chunk], group)
+             for j in range(ranks)]
+    got = [torch.empty_like(parts[0]) for _ in range(ranks)]
+    _all_to_all(got, parts, group)
+    gathered = torch.cat(got, dim=1).to(block.device)  # (V, K, chunk)
+    masks = torch.from_numpy(pack_bitmatrix(pm))
+    return _solve(masks, gathered)
+
+
+def ring_reconstruct(stacked, present: tuple[int, ...],
+                     wanted: tuple[int, ...], group=None,
+                     data_shards: int = 10, parity_shards: int = 4,
+                     matrix_kind: str = "vandermonde",
+                     device="cuda") -> torch.Tensor:
+    """Ring reduce-scatter of partial GF(2) products.
+
+    Same input layout as `all_to_all_reconstruct`, but each rank
+    multiplies only its own shard rows by its slice of the plane-major
+    decode matrix (the columns of those rows); GF(2) linearity makes the
+    output the XOR of the ranks' partials.  The partials ride the ring:
+    D-1 send/recv hops, each XORed into the next rank's chunk, until
+    rank d holds the reduced column chunk d.  Returns this rank's
+    (V, W, N/D) chunk, on `device`."""
+    import torch.distributed as dist
+    pm, block, d, ranks, chunk = _shard_major_prep(
+        stacked, present, wanted, group, data_shards, parity_shards,
+        matrix_kind, device)
+    w = len(wanted)
+    rows_local = data_shards // ranks
+    # Plane-major columns are b*K + s (bit b of input shard s): reshaped
+    # (8W, 8, K), this rank's rows are one slice of the last axis.
+    pm_local = pm.reshape(8 * w, 8, data_shards)[
+        :, :, d * rows_local:(d + 1) * rows_local].reshape(
+            8 * w, 8 * rows_local)
+    partial = _solve(torch.from_numpy(pack_bitmatrix(pm_local)), block)
+
+    def take(idx: int) -> torch.Tensor:
+        return partial[:, :, idx * chunk:(idx + 1) * chunk]
+
+    nxt = dist.get_global_rank(group, (d + 1) % ranks) \
+        if group is not None else (d + 1) % ranks
+    prv = dist.get_global_rank(group, (d - 1) % ranks) \
+        if group is not None else (d - 1) % ranks
+    # The accumulator made on rank d targets chunk d-1; after D-1 hops it
+    # lands there having taken every rank's partial once.
+    acc = take((d - 1) % ranks)
+    for t in range(1, ranks):
+        out = _wire(acc, group)
+        inc = torch.empty_like(out)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, out, nxt, group),
+            dist.P2POp(dist.irecv, inc, prv, group)])
+        for r in reqs:
+            r.wait()
+        acc = torch.bitwise_xor(inc.to(partial.device),
+                                take((d - t - 1) % ranks))
+    return acc

@@ -11,18 +11,9 @@ SQS query API with stdlib HTTP + the in-repo sig v4 signer (no SDK —
 weed/notification/aws_sqs/aws_sqs_pub.go), KafkaQueue (kafka.py)
 speaks the Kafka wire protocol directly over TCP, and PubSubQueue
 (pubsub.py) speaks the Pub/Sub REST API with RS256 service-account
-auth from libcrypto.  gocdk, the reference's Go-Cloud-Development-Kit
-portability shim over those same brokers, stays a registry stub (it is
-Go-ecosystem glue, not a broker).
-
-The port's copy has the memory, file, SQS and log queues.  Its Kafka
-and Pub/Sub queues, and the AsyncPublisher that carries them off the
-filer's thread, are not ported yet (ROADMAP queue 1, slice 11b): a
-`kafka://` or `pubsub://` spec, or a notification.toml that enables
-either, raises NotImplementedError naming that slice, and the filer does
-not start with one configured (the reference logs a warning for a
-broken queue and serves on without it; the port refuses instead of
-dropping events silently).
+auth from libcrypto — all three broker queues are real.  gocdk, the
+reference's Go-Cloud-Development-Kit portability shim over those same
+brokers, stays a registry stub (it is Go-ecosystem glue, not a broker).
 """
 
 from __future__ import annotations
@@ -320,12 +311,6 @@ class SqsQueue(NotificationQueue):
 _STUB_QUEUES = ("gocdk",)
 
 
-def _unported(scheme: str):
-    raise NotImplementedError(
-        f"the {scheme} notification queue is not ported yet "
-        "(ROADMAP queue 1, slice 11b)")
-
-
 def queue_for_spec(spec: str, **kw) -> NotificationQueue:
     """'memory://', 'file:///path/spool.jsonl',
     'kafka://broker:9092/topic',
@@ -338,17 +323,50 @@ def queue_for_spec(spec: str, **kw) -> NotificationQueue:
     if scheme == "file":
         return FileQueue("/" + rest.lstrip("/"))
     if scheme == "kafka":
-        _unported("kafka")
+        bootstrap, _, topic = rest.partition("/")
+        from .kafka import KafkaQueue
+        return KafkaQueue(bootstrap, topic or "seaweedfs", **kw)
     if scheme == "sqs":
         proto = "http" if kw.pop("http_endpoint", False) else "https"
         return SqsQueue(f"{proto}://{rest}", **kw)
     if scheme == "pubsub":
-        _unported("pubsub")
+        project, _, topic = rest.partition("/")
+        from .pubsub import PubSubQueue
+        return PubSubQueue(project, topic or "seaweedfs", **kw)
     if scheme in _STUB_QUEUES:
         raise NotImplementedError(
             f"{scheme} queue is a registry stub; add it behind "
             f"NotificationQueue (see weed/notification/{scheme})")
     raise ValueError(f"unknown queue spec: {spec}")
+
+
+class AsyncPublisher(NotificationQueue):
+    """Decorator that takes publish() off the caller's thread: a
+    networked queue (Kafka TCP, Pub/Sub HTTP) rides a _SendSpool so it
+    never blocks the filer's meta-log lock.  consume()/close()
+    delegate to the inner queue.  (SqsQueue carries its own spool.)"""
+
+    def __init__(self, inner: NotificationQueue):
+        self.inner = inner
+        self._spool = _SendSpool(
+            lambda item: self.inner.publish(*item), "notify-sender")
+
+    @property
+    def dropped(self) -> int:
+        return self._spool.dropped
+
+    def publish(self, key: str, message: dict) -> None:
+        self._spool.put((key, message))
+
+    def flush(self, timeout: float | None = None) -> None:
+        self._spool.flush(timeout)
+
+    def consume(self, fn: Callable[[str, dict], None]) -> None:
+        self.inner.consume(fn)
+
+    def close(self) -> None:
+        self._spool.close()
+        self.inner.close()
 
 
 class LogQueue(NotificationQueue):
@@ -376,7 +394,11 @@ def queue_from_config(cfg) -> NotificationQueue | None:
                            "/tmp/weed_notify")
         return FileQueue(os.path.join(d, "events.jsonl"))
     if cfg.get_bool("notification.kafka.enabled"):
-        _unported("kafka")
+        from .kafka import KafkaQueue
+        return AsyncPublisher(KafkaQueue(
+            cfg.get_string("notification.kafka.hosts",
+                           "localhost:9092").split(",")[0],
+            cfg.get_string("notification.kafka.topic", "seaweedfs")))
     if cfg.get_bool("notification.aws_sqs.enabled"):
         return SqsQueue(
             cfg.get_string("notification.aws_sqs.sqs_queue_url"),
@@ -387,7 +409,25 @@ def queue_from_config(cfg) -> NotificationQueue | None:
             region=cfg.get_string("notification.aws_sqs.region",
                                   "us-east-1"))
     if cfg.get_bool("notification.google_pub_sub.enabled"):
-        _unported("pubsub")
+        from .pubsub import PubSubQueue
+        sa = None
+        creds = cfg.get_string(
+            "notification.google_pub_sub.google_application_credentials")
+        if creds:
+            with open(creds) as f:
+                sa = json.load(f)
+        kw = {}
+        endpoint = cfg.get_string(
+            "notification.google_pub_sub.endpoint")
+        if endpoint:
+            kw["endpoint"] = endpoint
+        return AsyncPublisher(PubSubQueue(
+            cfg.get_string("notification.google_pub_sub.project_id"),
+            cfg.get_string("notification.google_pub_sub.topic",
+                           "seaweedfs"),
+            subscription=cfg.get_string(
+                "notification.google_pub_sub.subscription", ""),
+            service_account=sa, **kw))
     if cfg.get_bool("notification.log.enabled"):
         return LogQueue()
     return None

@@ -1,10 +1,11 @@
-"""Client-side AWS signature v4 signer.
+"""AWS signature v4: the computation and the client-side signer.
 
-Used by the S3 tier backend (storage/backend.py) to authenticate
-against any S3-compatible endpoint.  The computation is the one the
-JAX package's gateway verifies with (`s3api/auth.py`
-`compute_signature_v4`), kept here with its helpers so the port needs
-no server-side module.
+Used by the S3 tier backend (storage/backend.py), the S3 replication
+sink and the SQS notification queue to authenticate against any
+S3-compatible endpoint, including the port's own gateway.  The
+gateway's verifier (`auth.py`) takes `compute_signature_v4` and its
+helpers from here, so client and server can never drift.  (The JAX
+package keeps the computation in its `auth.py` and imports it here.)
 """
 
 from __future__ import annotations

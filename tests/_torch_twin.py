@@ -1,15 +1,20 @@
 """Every case of a JAX-package test file, run in both packages and
 compared: the port's counterparts of tests/test_filer*.py,
-test_metaha.py, test_*_grpc.py, test_shell_fs_security.py and
-test_configure_notify.py.
+test_metaha.py, test_*_grpc.py, test_shell_fs_security.py,
+test_configure_notify.py, and the gateway, replication and queue files
+(test_s3*.py, test_streaming_upload.py, test_webdav.py,
+test_messaging.py, test_query.py, test_mount.py, test_replication*.py,
+test_kafka_queue.py, test_pubsub_queue.py, and the gateway cases of
+test_tier.py, test_tenancy.py and test_cli.py).
 
 `TwinFile("test_filer.py")` reads that file and compiles two copies of
 it: the JAX package's as written, and the port's, with every name of
 the JAX package (`seaweedfs_tpu`) replaced by the port's
 (`seaweedfs_tpu_torch`).  In both copies every `assert` is rewritten to
 record what it compares before it asserts as before, and pytest's
-fixture and parametrize decorators are replaced by markers this module
-resolves itself.  `cases` lists every case pytest would collect from the
+fixture, parametrize and skipif decorators are replaced by markers this
+module resolves itself (a case the reference's skipif skips is skipped
+in both packages).  `cases` lists every case pytest would collect from the
 file (a test over a parametrised fixture or under `parametrize` gives
 one case per value, as pytest's ids name them); `run(case_id, tmp_path)`
 runs the case in the JAX package's copy and then in the port's, each in
@@ -27,7 +32,11 @@ gets that file's copy of the same package.  In the port's copy the
 volume server and the shell default to `device="cpu"`: the port's
 default is the card, which this host lacks.  Ids drawn from
 `secrets.token_hex` (hard-link ids) come from the seeded `random`
-during a run, alike in both packages.
+during a run, alike in both packages.  A case may run after others on
+the same fixtures (`prelude`), where the file's module-scoped fixture
+carries state from one case to the next; and the port's copy of the
+source may take (text, replacement) edits (`port_subs`), for the flags a
+CPU caller of the port must pass.
 
 Masked before the records are compared (the fields that must differ
 between two live runs): `host:port` of 127.0.0.1, localhost and 0.0.0.0
@@ -197,6 +206,16 @@ def _fixture_marker(*args, **kw):
     return mark
 
 
+def _skipif_marker(condition, reason: str = "", **_kw):
+    """pytest.mark.skipif's stand-in: a case whose condition holds is
+    skipped in both packages, with the reference's reason."""
+    def mark(fn):
+        if condition:
+            fn._twin_skip = reason or "skipped by the reference's skipif"
+        return fn
+    return mark
+
+
 def _parametrize_marker(argnames, argvalues, ids=None, **_kw):
     def mark(fn):
         names = [n.strip() for n in argnames.split(",")] \
@@ -237,6 +256,10 @@ class _Rewrite(ast.NodeTransformer):
             elif src.startswith("pytest.mark.parametrize"):
                 out.append(ast.Call(ast.Name("__twin_parametrize__",
                                              ast.Load()), d.args, d.keywords))
+            elif src.startswith("pytest.mark.skipif") and \
+                    isinstance(d, ast.Call):
+                out.append(ast.Call(ast.Name("__twin_skipif__", ast.Load()),
+                                    d.args, d.keywords))
             elif src.startswith("pytest.mark."):
                 continue
             else:
@@ -267,9 +290,10 @@ class _Rewrite(ast.NodeTransformer):
 _MODULES: dict = {}
 
 
-def load(name: str, pkg: str) -> types.ModuleType:
+def load(name: str, pkg: str, port_subs: tuple = ()) -> types.ModuleType:
     """The twin copy of tests/<name>.py for `pkg`, compiled once per
-    process."""
+    process.  `port_subs` are (text, replacement) pairs applied to the
+    port's copy after the package rename."""
     key = (name, pkg)
     if key in _MODULES:
         return _MODULES[key]
@@ -277,12 +301,16 @@ def load(name: str, pkg: str) -> types.ModuleType:
         src = f.read()
     if pkg == PORT:
         src = _REF_NAME.sub(PORT, src)
+        for old, new in port_subs:
+            assert old in src, f"{name}: {old!r} not in the source"
+            src = src.replace(old, new)
     tree = ast.fix_missing_locations(_Rewrite().visit(ast.parse(src)))
     mod = types.ModuleType(f"_twin_{pkg}_{name}")
     mod.__file__ = os.path.join(TESTS, name + ".py")
     mod.__dict__.update(__twin_rec__=Recorder(),
                         __twin_fixture__=_fixture_marker,
                         __twin_parametrize__=_parametrize_marker,
+                        __twin_skipif__=_skipif_marker,
                         __twin_mod__=lambda n: load(n, pkg))
     sys.modules[mod.__name__] = mod
     _MODULES[key] = mod
@@ -336,12 +364,21 @@ class TwinFile:
     packages.  `clocked` names modules below the package whose `time`
     is pinned to one instant in each package's run (where the bytes an
     assert compares carry the wall clock, such as a needle's append
-    stamp)."""
+    stamp).  `prelude` maps a case to the cases that run before it on
+    the same fixtures, where the file's module-scoped fixture carries
+    state from one case to the next (a bucket an earlier case made).
+    `port_subs` edit the port's copy of the source: (text, replacement)
+    pairs, for the flags a CPU caller of the port must pass (a
+    subprocess `server` takes `-device=cpu`)."""
 
-    def __init__(self, name: str, clocked: tuple = ()):
+    def __init__(self, name: str, clocked: tuple = (), prelude=None,
+                 port_subs: tuple = ()):
         self.name = name.removesuffix(".py")
         self.clocked = clocked
+        self.prelude = dict(prelude or {})
+        self.port_subs = tuple(port_subs)
         self.ref = load(self.name, PACKAGES[0])
+        load(self.name, PORT, self.port_subs)
         self.cases: dict[str, Case] = {}
         for attr, obj in vars(self.ref).items():
             if attr.startswith("test") and inspect.isfunction(obj) \
@@ -378,6 +415,10 @@ class TwinFile:
         """The case in each package; both must pass and record alike.
         Returns the port's records."""
         case = self.cases[case_id]
+        fn = getattr(getattr(self.ref, case.cls) if case.cls else self.ref,
+                     case.fn)
+        if getattr(fn, "_twin_skip", None):
+            pytest.skip(fn._twin_skip)
         out = []
         for pkg in PACKAGES:
             root = tmp_path / ("port" if pkg == PORT else "ref")
@@ -386,8 +427,9 @@ class TwinFile:
                 _reset_port_globals()
             random.seed(seed)
             np.random.seed(seed)
+            before = [self.cases[c] for c in self.prelude.get(case_id, ())]
             out.append(_run_one(load(self.name, pkg), case, pkg, root,
-                                self.clocked))
+                                self.clocked, before))
         ref, port = out
         for i, (a, b) in enumerate(zip(ref, port)):
             assert a == b, (f"assert #{i} of {case_id} records differently:"
@@ -451,7 +493,8 @@ def _seeded_token_hex(nbytes: int = 32) -> str:
     return random.getrandbits(8 * nbytes).to_bytes(nbytes, "big").hex()
 
 
-def _run_one(mod, case: Case, pkg: str, root, clocked=()) -> list:
+def _run_one(mod, case: Case, pkg: str, root, clocked=(),
+             before=()) -> list:
     rec = mod.__twin_rec__
     rec.records = []
     rec.roots = [str(root)]
@@ -464,7 +507,6 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=()) -> list:
     cls = getattr(mod, case.cls) if case.cls else None
     fixtures = _fixtures(mod, cls)
     instance = cls() if cls else None
-    fn = getattr(instance if cls else mod, case.fn)
     mp = pytest.MonkeyPatch()
     finalizers: list = []
     values: dict = {}
@@ -513,18 +555,20 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=()) -> list:
         for n, f in fixtures.items():
             if f._twin_fixture["autouse"]:
                 resolve(n)
-        kw = {}
-        for p in inspect.signature(fn).parameters:
-            if p == "self":
-                continue
-            hit = next((k for k in case.call_params if p in k), None)
-            if hit is not None:
-                names, values_ = _param_axis(fn, hit)
-                v = values_[case.call_params[hit]]
-                kw[p] = v[names.index(p)] if len(names) > 1 else v
-            else:
-                kw[p] = resolve(p)
-        fn(**kw)
+        for c in (*before, case):
+            fn = getattr(instance if cls else mod, c.fn)
+            kw = {}
+            for p in inspect.signature(fn).parameters:
+                if p == "self":
+                    continue
+                hit = next((k for k in c.call_params if p in k), None)
+                if hit is not None:
+                    names, values_ = _param_axis(fn, hit)
+                    v = values_[c.call_params[hit]]
+                    kw[p] = v[names.index(p)] if len(names) > 1 else v
+                else:
+                    kw[p] = resolve(p)
+            fn(**kw)
     finally:
         for fin in reversed(finalizers):
             fin()

@@ -6,20 +6,18 @@ processes and a `shell -device=cpu` process against them: the shell's
 over the volume servers and every needle reads back through the EC
 path.
 
-Each part of the port that waits for a later slice refuses with
-NotImplementedError (or, on the wire, 501, or AttributeError for a
-name) naming that slice, instead of answering a fake success:
-`server -s3/-webdav`, the /query route, the Kafka and Pub/Sub
-notification queues and the filer-event replicator (slice 11b).  The
-parts that refused here until they were ported now work: the volume
-server's cross-cluster shipper and lease plane, multi-master raft, the
-gRPC master transport, and `volume.fsck`, which without a filer answers
-the reference's ShellError.  A `-peers` list that does not name this
+The parts that refused here until they were ported now work: the
+volume server's cross-cluster shipper and lease plane, multi-master
+raft, the gRPC master transport, `volume.fsck` (which without a filer
+answers the reference's ShellError), and since slice 11b the /query
+route, `server -s3/-webdav`, the Kafka and Pub/Sub notification queues
+and the filer-event replicator.  A `-peers` list that does not name this
 master is refused as the reference refuses it.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -133,7 +131,9 @@ def test_unported_parts_refuse(tmp_path, monkeypatch):
                 f"http://{vs.url()}/query", "POST",
                 b'{"fid": "%s", "query": "select * from s3object"}'
                 % fid.encode())
-            assert status == 501 and "slice 11b" in str(doc)
+            assert status == 200
+            assert [json.loads(x) for x in bytes(doc).splitlines()] \
+                == [{"a": 1}]
             env = CommandEnv(m.url(), device="cpu")
             try:
                 with pytest.raises(ShellError, match="no filer configured"):
@@ -144,22 +144,25 @@ def test_unported_parts_refuse(tmp_path, monkeypatch):
             vs.stop()
     finally:
         m.stop()
-    for role in ("s3", "webdav"):
-        with pytest.raises(NotImplementedError, match="slice 11b"):
-            main(["server", f"-{role}", f"-dir={tmp_path / 's'}",
-                  "-device=cpu"])
-    for spec in ("kafka://127.0.0.1:1/t", "pubsub://p/t"):
-        with pytest.raises(NotImplementedError, match="slice 11b"):
-            queue_for_spec(spec)
-    # A filer configured to publish to Kafka refuses to start rather
-    # than drop its events.
+    from seaweedfs_tpu_torch.command import COMMANDS, _load_all
+    from seaweedfs_tpu_torch.replication.kafka import KafkaQueue
+    from seaweedfs_tpu_torch.replication.notification import AsyncPublisher
+    from seaweedfs_tpu_torch.replication.pubsub import PubSubQueue
+    _load_all()
+    assert "-s3=true" in COMMANDS["server"].usage
+    assert "-webdav=true" in COMMANDS["server"].usage
+    assert isinstance(queue_for_spec("kafka://127.0.0.1:1/t"), KafkaQueue)
+    assert isinstance(queue_for_spec("pubsub://p/t"), PubSubQueue)
+    # A filer configured to publish to Kafka starts with the queue
+    # behind its async publisher (nothing is sent until an event).
     (tmp_path / "conf").mkdir()
     (tmp_path / "conf" / "notification.toml").write_text(
         '[notification.kafka]\nenabled = true\nhosts = "127.0.0.1:1"\n')
     monkeypatch.setattr(config, "SEARCH_PATHS", [str(tmp_path / "conf")])
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        FilerServer("http://127.0.0.1:1", port=0)
-    with pytest.raises(AttributeError, match="slice 11b"):
-        replication.Replicator  # noqa: B018
+    fs = FilerServer("http://127.0.0.1:1", port=0)
+    q = fs.filer.notification_queue
+    assert isinstance(q, AsyncPublisher) and isinstance(q.inner, KafkaQueue)
+    q.close()
+    assert replication.Replicator.__name__ == "Replicator"
     with pytest.raises(ValueError, match="-peers must include"):
         MasterServer(peers=["127.0.0.1:1", "127.0.0.1:2"])

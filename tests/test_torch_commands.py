@@ -16,22 +16,23 @@ import contextlib
 import io
 import os
 import tarfile
+import types
 
 import pytest
 
-from _torch_cluster import (PACKAGES, LiveCluster,  # noqa: F401
+from _torch_cluster import (PACKAGES, PORT, LiveCluster,  # noqa: F401
                             hermetic_port_state, mod)
 from _torch_storage import twin
 
 pytestmark = pytest.mark.torch
 
-# The reference's subcommands that wait for the gateways, the broker,
-# the filer-event replication or the mount (ROADMAP queue 1, slice 11b).
-LATER = {"msg.broker", "s3", "webdav", "mount", "filer.replicate",
-         "filer.sync", "filer.backup"}
-# This slice's commands and the filer's (slice 11a).
+# The backup, offline and benchmark commands and the filer's (slice 11a).
 OFFERED = ("backup", "fix", "compact", "export", "benchmark", "watch",
            "scaffold", "filer")
+# The gateways, the broker, the filer-event replication and the mount
+# (slice 11b).
+GATEWAYS = ("msg.broker", "s3", "webdav", "mount", "filer.copy",
+            "filer.replicate")
 
 
 def test_dispatcher_offers_this_slices_commands():
@@ -39,12 +40,13 @@ def test_dispatcher_offers_this_slices_commands():
     ref._load_all()
     port._load_all()
     assert set(OFFERED) <= set(port.COMMANDS)
-    assert not LATER & set(port.COMMANDS)
-    # Everything the port offers, the reference offers under the same
-    # name and usage (the port's volume, server and shell add -device).
+    assert set(GATEWAYS) <= set(port.COMMANDS)
+    # Both packages register the same commands, under the same usage
+    # (the port's volume, server and shell add -device).
+    assert sorted(port.COMMANDS) == sorted(ref.COMMANDS)
+    assert len(port.COMMANDS) == 21
     for name, cmd in port.COMMANDS.items():
-        assert name in ref.COMMANDS
-        if name in OFFERED:
+        if name in OFFERED + GATEWAYS:
             assert cmd.usage == ref.COMMANDS[name].usage
 
 
@@ -187,3 +189,27 @@ def test_benchmark_takes_one_master_in_both_packages():
     assert out[1] == out[0]
     assert out[1][1] == [(0, 2)]
     assert "http://127.0.0.1:1,127.0.0.1:2" in out[1][2]
+
+
+@pytest.mark.parametrize("missing", ["/dev/fuse", "libfuse.so.2"])
+def test_mount_without_fuse_fails_naming_what_is_missing(
+        missing, tmp_path, monkeypatch):
+    """`weed mount` on a host without a FUSE device or libfuse exits 1
+    and names the missing piece, before it dials the filer (the one
+    given here does not exist); it never goes on without a mount."""
+    import ctypes
+
+    from seaweedfs_tpu_torch.command import mount_cmd
+    if missing == "/dev/fuse":
+        real = os.path.exists
+        monkeypatch.setattr(mount_cmd.os.path, "exists",
+                            lambda p: p != "/dev/fuse" and real(p))
+    else:
+        def no_lib(name, *a, **k):
+            raise OSError(f"{name}: cannot open shared object file")
+        monkeypatch.setattr(ctypes, "CDLL", no_lib)
+    rc, out, err = _main(types.SimpleNamespace(name=PORT), [
+        "mount", f"-dir={tmp_path}", "-filer=127.0.0.1:1"])
+    assert rc == 1
+    assert missing in err and "cannot mount" in err
+    assert "mounting" not in out

@@ -7,10 +7,9 @@ Every case of tests/test_configure_notify.py runs in both packages through
 each, and the values those asserts compare must be equal across the
 two (masked fields: see `_torch_twin`).  One case,
 `test_fs_meta_notify_bootstraps_queue`, ends by driving a `Replicator`
-into a `LocalSink`, which wait for ROADMAP queue 1 slice 11b in the
-port; its counterpart here runs the case up to that point in both
-packages, compares the spooled events, and consumes the spool with
-`FileQueue.consume` in each instead.
+into a `LocalSink`; it runs whole through the twin, and its first half
+also runs here on its own, consuming the spool with `FileQueue.consume`
+in each package.
 """
 
 from __future__ import annotations
@@ -29,10 +28,7 @@ pytestmark = pytest.mark.torch
 TWIN = TwinFile("test_configure_notify.py")
 
 
-REPLICATOR_CASE = "test_fs_meta_notify_bootstraps_queue"
-
-
-@pytest.mark.parametrize("case", TWIN.ids(exclude=(REPLICATOR_CASE,)))
+@pytest.mark.parametrize("case", TWIN.ids())
 def test_configure_notify_case_in_both_packages(case, tmp_path):
     TWIN.run(case, tmp_path)
 

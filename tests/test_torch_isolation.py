@@ -429,3 +429,105 @@ def test_native_crc_builds_from_source_when_the_committed_library_fails(
     assert lib is not None
     assert os.listdir(tmp_path)
     assert native.crc32c_fn(lib)(b"123456789") == 0xE3069283
+
+
+def test_port_gateways_serve_without_grpc_and_protobuf(tmp_path):
+    """`python -m seaweedfs_tpu_torch s3` and `msg.broker` (beside a
+    master, a volume server and a filer) in processes where grpc,
+    google.protobuf, jax and the JAX package cannot be imported: the
+    broker logs that its gRPC plane is off, and both serve a request."""
+    import json
+    import time
+
+    from seaweedfs_tpu_torch.cluster import rpc
+    mport, fport, sport, bport = (rpc.free_port() for _ in range(4))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    argv = [["master", f"-port={mport}", f"-mdir={tmp_path / 'm'}",
+             "-volumeSizeLimitMB=64"],
+            ["volume", "-device=cpu", f"-port={rpc.free_port()}",
+             f"-dir={tmp_path / 'v'}", "-max=7", f"-mserver=127.0.0.1:{mport}"],
+            ["filer", f"-port={fport}", f"-master=127.0.0.1:{mport}",
+             f"-dir={tmp_path / 'f'}"],
+            ["s3", f"-port={sport}", f"-filer=127.0.0.1:{fport}"],
+            ["msg.broker", f"-port={bport}", f"-filer=127.0.0.1:{fport}"]]
+    procs, logs = [], []
+    s3, broker = f"http://127.0.0.1:{sport}", f"http://127.0.0.1:{bport}"
+
+    def wait(up):
+        deadline = time.monotonic() + 90
+        while True:
+            for p, log in zip(procs, logs):
+                assert p.poll() is None, log.read_text()[-3000:]
+            try:
+                if up():
+                    return
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "cluster did not start"
+            time.sleep(0.2)
+
+    def cluster_up():
+        _code, doc = rpc.call_status(
+            f"http://127.0.0.1:{mport}/cluster/healthz", timeout=2.0)
+        rpc.call(f"http://127.0.0.1:{fport}/", timeout=2.0)
+        return len(doc.get("nodes", [])) == 1
+
+    def gateways_up():
+        rpc.call_status(s3 + "/", timeout=2.0)
+        rpc.call(broker + "/status", timeout=2.0)
+        return True
+    try:
+        # The gateways start once the filer they front serves.
+        for i, args in enumerate(argv):
+            if i == 3:
+                wait(cluster_up)
+            logs.append(tmp_path / f"{args[0]}.log")
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _NO_GRPC, *args],
+                    cwd=str(tmp_path), env=env, stdout=log,
+                    stderr=subprocess.STDOUT))
+        wait(gateways_up)
+        payload = os.urandom(200_000)
+        assert rpc.call_status(s3 + "/nogrpc", "PUT", b"")[0] == 200
+        assert rpc.call_status(s3 + "/nogrpc/a.bin", "PUT", payload)[0] \
+            == 200
+        code, body = rpc.call_status(s3 + "/nogrpc/a.bin")
+        assert code == 200 and bytes(body) == payload
+        from seaweedfs_tpu_torch.messaging import MessagingClient
+        c = MessagingClient(broker)
+        c.configure_topic("ns", "t", partition_count=1)
+        c.publish("ns", "t", b"hello", key="k")
+        msgs = c.fetch("ns", "t", 0)["messages"]
+        assert [m["value"] for m in msgs] == [b"hello"]
+        assert json.loads(json.dumps(rpc.call(broker + "/status")))
+    finally:
+        for p in procs:
+            p.terminate()
+        for p in procs:
+            p.wait(30)
+    for log in logs:
+        text = log.read_text()
+        assert "Traceback" not in text, text[-3000:]
+        if log.stem in ("master", "volume", "filer", "msg.broker"):
+            assert "gRPC plane disabled" in text, text[-3000:]
+
+
+def test_both_packages_register_the_same_21_commands():
+    import importlib
+    names = []
+    for pkg in ("seaweedfs_tpu", "seaweedfs_tpu_torch"):
+        cmd = importlib.import_module(f"{pkg}.command")
+        cmd._load_all()
+        names.append(sorted(cmd.COMMANDS))
+    assert names[0] == names[1]
+    assert len(names[1]) == 21
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_stub_names_slice_11b(path):
+    """No part of the port still refuses as waiting for slice 11b."""
+    with open(path) as f:
+        text = f.read()
+    assert "11b" not in text, path

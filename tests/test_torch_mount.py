@@ -1,0 +1,26 @@
+"""The port's mount layer (`mount/dirty_pages.py`, `meta_cache.py`,
+`vfs.py`, `fuse_ll.py`) held against the JAX package's.  The two
+real-FUSE cases skip in both packages where the reference's skip
+(no usable /dev/fuse or libfuse.so.2).
+
+Every case of tests/test_mount.py runs in both packages through `_torch_twin`:
+the same seeded inputs, the reference's own asserts in each, and the
+values those asserts compare must be equal across the two (masked
+fields: see `_torch_twin`).
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from _torch_cluster import hermetic_port_state  # noqa: F401
+from _torch_twin import TwinFile
+
+pytestmark = pytest.mark.torch
+
+TWIN = TwinFile("test_mount.py")
+
+
+@pytest.mark.parametrize("case", TWIN.ids())
+def test_mount_case_in_both_packages(case, tmp_path):
+    TWIN.run(case, tmp_path)

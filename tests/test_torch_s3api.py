@@ -1,0 +1,25 @@
+"""The port's S3 gateway (`s3api/auth.py`, `policy.py`, `select.py`,
+`server.py`) held against the JAX package's: protocol, auth,
+multipart, listings.
+
+Every case of tests/test_s3api.py runs in both packages through `_torch_twin`:
+the same seeded inputs, the reference's own asserts in each, and the
+values those asserts compare must be equal across the two (masked
+fields: see `_torch_twin`).
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from _torch_cluster import hermetic_port_state  # noqa: F401
+from _torch_twin import TwinFile
+
+pytestmark = pytest.mark.torch
+
+TWIN = TwinFile("test_s3api.py")
+
+
+@pytest.mark.parametrize("case", TWIN.ids())
+def test_s3api_case_in_both_packages(case, tmp_path):
+    TWIN.run(case, tmp_path)
