@@ -2829,6 +2829,39 @@ HELD = (
     "del sys.argv[1]\n")
 
 
+# A thread in each master that wakes every 10 ms and prints, with the
+# wall clock, each wake-up later than STALL_S: how long the process's
+# Python threads (raft's appends, the beats' handlers, the sweep) could
+# not run, for want of the interpreter lock or of a core.
+STALL_S = 0.2
+STALL_MONITOR = (
+    "import threading, time\n"
+    "def _stall_monitor():\n"
+    "    prev = time.monotonic()\n"
+    "    while True:\n"
+    "        time.sleep(0.01)\n"
+    "        now = time.monotonic()\n"
+    f"        if now - prev - 0.01 > {STALL_S}:\n"
+    "            print(f'STALL {time.time():.3f} {now - prev - 0.01:.3f}',\n"
+    "                  flush=True)\n"
+    "        prev = now\n"
+    "threading.Thread(target=_stall_monitor, daemon=True).start()\n")
+
+
+def master_stalls(logs: dict, origin: float) -> dict:
+    """{master url: [[wall clock - `origin` s, stall s], ...]} from the
+    STALL lines of each master's log (`logs`: url -> path); a stall
+    ends at its time."""
+    out = {}
+    for url, path in logs.items():
+        with open(path, errors="replace") as f:
+            rows = [line.split()[1:3] for line in f
+                    if line.startswith("STALL ")]
+        out[url] = [[round(float(t) - origin, 3), float(s)]
+                    for t, s in rows]
+    return out
+
+
 def port_launch(dev, before_run: str = "") -> str:
     """The launch snippet of phase 11's processes: MASTER_LAUNCH with
     `before_run` (such as HELD) ahead of the run, and, when the phase
@@ -3025,7 +3058,11 @@ def phase_ha_cluster(torch, dev, args) -> dict:
     killed, 300 degraded reads run (K1 in the survivors) and the new
     leader's repair daemon rebuilds the lost shards (K2 in the leader);
     every needle reads back; the shell's cluster verbs run on the
-    leader, and `weed benchmark` against it."""
+    leader, and `weed benchmark` against it.  The output carries the
+    raft term after each step that asks for /cluster/device, each
+    master's stalls (STALL_MONITOR) and, after the repair, what each
+    master says of the volume (`ha_diagnosis`, which a failed read or
+    repair poll prints)."""
     from seaweedfs_tpu_torch.cluster import resilience, rpc
     from seaweedfs_tpu_torch.cluster.client import WeedClient
     from seaweedfs_tpu_torch.core import types as t
@@ -3091,12 +3128,16 @@ def phase_ha_cluster(torch, dev, args) -> dict:
         murls = [f"http://127.0.0.1:{p}" for p in mports]
         peers = ",".join(f"127.0.0.1:{p}" for p in mports)
         m_procs: dict = {}
+        m_launch = port_launch(dev, STALL_MONITOR)
         for i, port in enumerate(mports):
-            m_procs[murls[i]] = start(
+            m_procs[murls[i]] = p = port_process(
                 ["master", f"-port={port}", f"-mdir={work}/m{i}",
                  f"-peers={peers}", f"-volumeSizeLimitMB={limit_mb}",
                  f"-defaultReplication={HA_REPLICATION}", "-repair",
-                 f"-repair.delay={HA_REPAIR_DELAY_S}"], f"m{i}")
+                 f"-repair.delay={HA_REPAIR_DELAY_S}"],
+                os.path.join(work, f"m{i}.log"), m_launch)
+            procs.append(p)
+        m_logs = {u: p.log_path for u, p in m_procs.items()}
         dirs: dict = {}
         vs_procs: dict = {}
         for i in range(HA_NODES):
@@ -3145,6 +3186,15 @@ def phase_ha_cluster(torch, dev, args) -> dict:
                           f"&collection={HA_FILLER}", "POST")["count"]
         check(filled == slots, f"filled {filled} of {slots} free slots")
         rows0 = node_device_rows(leader, vs_nodes, 0.0, procs)
+        # The highest raft term after each step that asks the leader for
+        # /cluster/device (its first loads the master's device stack): a
+        # term that moves there is an election the step caused.
+        terms = {"startup": term_start}
+
+        def term_now(step: str) -> None:
+            terms[step] = max(st["raft"]["term"]
+                              for st in master_roles(murls).values())
+        term_now("first_device_rows")
         blob, sizes = live_needles(args.seed + 11, LIVE_BLOB_MIB * MIB)
         fids: dict = {}  # fid -> (offset, size)
         lock = threading.Lock()
@@ -3237,9 +3287,9 @@ def phase_ha_cluster(torch, dev, args) -> dict:
             leader = wait_for(lambda: the_leader(survivors),
                               "a new raft leader", procs, timeout=60)
             out["new_leader_s"] = time.perf_counter() - t_kill
-            out["raft_terms"] = {
-                "startup": term_start, "at_kill": term_at_kill,
-                "new_leader": master_roles([leader])[leader]["raft"]["term"]}
+            terms.update(at_kill=term_at_kill, new_leader=master_roles(
+                [leader])[leader]["raft"]["term"])
+            out["raft_terms"] = terms
             log(f"ha: leader {old_leader} killed; {leader} leads after "
                 f"{out['new_leader_s']:.3f} s")
             wait_for(lambda: stop.is_set() or target[0]
@@ -3421,6 +3471,7 @@ def phase_ha_cluster(torch, dev, args) -> dict:
                                           sb_dirs)):
             before = node_device_rows(murl, nodes, time.time(), procs)
             if side == "primary":
+                term_now("before_encode")
                 idle = rows_delta(rows0, before)
                 check(not idle, f"volume servers launched during the write,"
                                 f" backup or mirror: {idle}")
@@ -3493,9 +3544,12 @@ def phase_ha_cluster(torch, dev, args) -> dict:
         live = [n for n in vs_nodes if n != victim]
         rows_kill = node_device_rows(leader, vs_nodes, time.time(), procs)
         leader_rows0 = leader_device_rows(leader)
+        term_now("holder_kill")
         out["rss_mib"][f"volume {victim} (killed)"] = \
             rss_mib(vs_procs[victim].pid)
-        t_kill = time.perf_counter()
+        t_kill, wall_kill = time.perf_counter(), time.time()
+        terms_kill = {u: st["raft"]["term"]
+                      for u, st in master_roles(survivors).items()}
         vs_procs[victim].kill()
         vs_procs[victim].wait(30)
         procs.remove(vs_procs[victim])
@@ -3521,7 +3575,9 @@ def phase_ha_cluster(torch, dev, args) -> dict:
                 raise RuntimeError(
                     f"degraded read {i} ({fid}) "
                     f"{time.perf_counter() - t_kill:.2f} s after the "
-                    f"kill: {e}; masters: {ha_diagnosis(survivors, vid)}"
+                    f"kill: {e}; masters: "
+                    f"{ha_diagnosis(survivors, vid, t_kill, wall_kill)}; "
+                    f"stalls: {master_stalls(m_logs, wall_kill)}"
                 ) from None
             lat.append(time.perf_counter() - t0)
             check(data == blob[off:off + size], f"degraded read {fid} wrong")
@@ -3533,6 +3589,7 @@ def phase_ha_cluster(torch, dev, args) -> dict:
         step = rows_delta({n: rows_kill[n] for n in live}, rows_reads)
         check(rows_delta(leader_rows0, leader_device_rows(leader)) == {},
               "the repair launched before the degraded reads ended")
+        term_now("after_degraded_reads")
         check(step == ({"reconstruct_kernel": expect_k1} if expect_k1
                        else {}),
               f"degraded reads launched {step}, the layout needs "
@@ -3542,11 +3599,26 @@ def phase_ha_cluster(torch, dev, args) -> dict:
             "volume_servers": vs_kernel_launches(step)}
 
         def repaired():
-            locs = env.ec_shard_locations(vid)
+            try:
+                locs = env.ec_shard_locations(vid)
+            except rpc.RpcError as e:
+                raise RuntimeError(
+                    f"repair poll {time.perf_counter() - t_kill:.2f} s "
+                    f"after the kill: {e}; masters: "
+                    f"{ha_diagnosis(survivors, vid, t_kill, wall_kill)}; "
+                    f"stalls: {master_stalls(m_logs, wall_kill)}"
+                ) from None
             return sorted(s for s, us in locs.items()
                           if any(u in live for u in us)) == list(range(14))
         wait_for(repaired, "the autopilot's EC rebuild", procs, timeout=600)
         out["repair_s_from_kill"] = time.perf_counter() - t_kill
+        # The control plane across the repair, failed or not: a moved
+        # term or a live node's heartbeat.lost is the 404's window.
+        out["masters_after_repair"] = {
+            "terms_at_kill": terms_kill,
+            **ha_diagnosis(survivors, vid, t_kill, wall_kill)}
+        # Each master's stalls over the phase, in s from the kill.
+        out["master_stalls"] = master_stalls(m_logs, wall_kill)
         out["repair_status_after"] = run_command(env, "cluster.repair status")
         files = shard_files({n: dirs[n] for n in live}, vid)
         check(sorted(files) == list(range(14)),
@@ -3555,6 +3627,7 @@ def phase_ha_cluster(torch, dev, args) -> dict:
             check(sha256_file(files[sid][1]) == ref_sha[sid],
                   f"rebuilt shard {vid}.{sid} differs from its original")
         step = rows_delta(leader_rows0, leader_device_rows(leader))
+        term_now("after_repair")
         want = rebuild_launches({vid: lost}, {vid: shard_size})
         check(set(step) <= {"batch_reconstruct"}
               and step.get("batch_reconstruct", 0) == want,
@@ -3653,22 +3726,91 @@ def phase_ha_cluster(torch, dev, args) -> dict:
     return out
 
 
-def ha_diagnosis(murls: list[str], vid: int) -> dict:
+def lookup_summary(answer: tuple) -> list:
+    """A /dir/lookup answer in short: [status, {shard: holders}] for an
+    EC volume, else [status, the body]."""
+    status, doc = answer
+    shards = doc.get("ecShards") if isinstance(doc, dict) else None
+    if shards is None:
+        return [status, doc]
+    return [status, {s: [loc["url"] for loc in locs]
+                     for s, locs in sorted(shards.items(),
+                                           key=lambda kv: int(kv[0]))}]
+
+
+def ha_diagnosis(murls: list[str], vid: int, t_kill: float,
+                 wall_kill: float) -> dict:
     """What each master says of itself and of volume `vid` (for a
-    failure's message): raft role and term, and its /dir/lookup."""
+    failure's message): raft role and term, its /dir/lookup, its
+    heartbeat.lost events since the kill (`wall_kill`, time.time())
+    with their age_seconds and its elections (leader.elect) with their
+    terms; the leader's EC shard row for `vid` (each node of its
+    /vol/list with the shards it holds); the seconds since the kill
+    (`t_kill`, time.perf_counter())."""
     from seaweedfs_tpu_torch.cluster import rpc
-    out = {}
+    from seaweedfs_tpu_torch.ec.shard_bits import ShardBits
+    out: dict = {"s_since_kill": round(time.perf_counter() - t_kill, 3)}
     for u in murls:
         try:
             st = rpc.call(u + "/cluster/status", timeout=5.0)
+            lost = rpc.call(f"{u}/cluster/events?type=heartbeat.lost"
+                            f"&since={wall_kill}", timeout=5.0)
+            won = rpc.call(f"{u}/cluster/events?type=leader.elect",
+                           timeout=5.0)
             out[u] = {"is_leader": st.get("is_leader"),
                       "leader": st.get("leader"),
                       "term": st.get("raft", {}).get("term"),
-                      "lookup": rpc.call_status(
-                          f"{u}/dir/lookup?volumeId={vid}", timeout=5.0)}
+                      "lookup": lookup_summary(rpc.call_status(
+                          f"{u}/dir/lookup?volumeId={vid}", timeout=5.0)),
+                      "heartbeat_lost": [
+                          {"node": e.get("node"),
+                           "s_after_kill": round(e["ts"] - wall_kill, 3),
+                           "age_seconds": e["attrs"].get("age_seconds")}
+                          for e in lost["events"]],
+                      "elected_s_after_kill": [
+                          [round(e["ts"] - wall_kill, 3),
+                           e["attrs"].get("term")] for e in won["events"]]}
+            if st.get("is_leader"):
+                topo = rpc.call(u + "/vol/list", timeout=5.0)["topology"]
+                out["leader_ec_row"] = {
+                    n["url"]: ShardBits(e["shard_bits"]).shard_ids()
+                    for dc in topo["data_centers"] for r in dc["racks"]
+                    for n in r["nodes"] for e in n["ec_shards"]
+                    if e["id"] == vid}
+                out["leader_nodes"] = sorted(
+                    n["url"] for dc in topo["data_centers"]
+                    for r in dc["racks"] for n in r["nodes"])
         except Exception as e:  # noqa: BLE001 — a diagnosis, best effort
             out[u] = repr(e)
     return out
+
+
+def ha_runs(torch, dev, args, smi: str) -> int:
+    """Phase 11 alone, `args.ha_runs` times in a row: per run its wall,
+    whether it passed (else the failure's message, with its diagnosis),
+    the seconds to repair and the masters' terms and heartbeat.lost
+    events across the repair.  Exits 1 if any run failed."""
+    failed = 0
+    for i in range(args.ha_runs):
+        t0 = time.perf_counter()
+        row: dict = {"run": i}
+        try:
+            with hooks("armed"):
+                ha = phase_ha_cluster(torch, dev, args)
+            row.update(ok=True, repair_s_from_kill=ha["repair_s_from_kill"],
+                       degraded_read_ms=ha["degraded_read_ms"],
+                       raft_terms=ha["raft_terms"],
+                       master_stalls=ha["master_stalls"],
+                       masters_after_repair=ha["masters_after_repair"])
+        except Exception as e:  # noqa: BLE001 — counted, then reported
+            failed += 1
+            row.update(ok=False, error=f"{type(e).__name__}: {e}"[-6000:])
+        row["wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"ha_run": row}), flush=True)
+    print(smi)
+    print(json.dumps({"ha_runs": args.ha_runs, "passed":
+                      args.ha_runs - failed}))
+    return 1 if failed else 0
 
 
 def leader_device_rows(murl: str) -> dict:
@@ -5624,6 +5766,9 @@ def main() -> int:
                     help="the filer cluster's volume size limit, MiB")
     ap.add_argument("--gateway-mib", type=int, default=GW_LIMIT_MB,
                     help="the gateway cluster's volume size limit, MiB")
+    ap.add_argument("--ha-runs", type=int, default=0,
+                    help="only build, probe and run phase 11 this many "
+                         "times, one {\"ha_run\": ...} line each")
     args = ap.parse_args()
 
     import torch
@@ -5650,6 +5795,8 @@ def main() -> int:
             log(f"sass {name} {fn}: {json.dumps(counts)}")
     check(crc.native_loaded(), "the native CRC32-C library did not load")
     probe = phase_probe(torch, dev)
+    if args.ha_runs:
+        return ha_runs(torch, dev, args, smi)
 
     kern = phase_kernels(torch, dev, args.seed)
     with hooks("armed"):

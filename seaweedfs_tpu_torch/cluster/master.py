@@ -502,6 +502,8 @@ class MasterServer:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> None:
+        if self.repair.enabled:
+            self.repair.prepare()
         self.server.start()
         self._sweeper.start()
         if self.raft is not None:

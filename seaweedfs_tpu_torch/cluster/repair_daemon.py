@@ -467,6 +467,33 @@ class RepairDaemon:
 
         return min(cands, key=score)
 
+    def prepare(self) -> None:
+        """Set up the rebuild path now, before the master serves: import
+        it, build the device mesh, create each card's context and stream
+        pool and load the kernels.  Done in the first repair instead (as
+        the JAX package does), it held the interpreter lock long enough
+        for a raft election (the pool alone 0.3-0.7 s on an H100 host,
+        the election timeout 0.6-1.2 s): a follower whose topology held
+        no EC volume took over, and every lookup of the volume answered
+        404 until each holder beat again.  Without a device the mesh
+        stays unbuilt and the first rebuild raises as before."""
+        try:
+            from ..parallel.cluster_rebuild import make_mesh
+            mesh = make_mesh()
+            if any(d.type == "cuda" for d in mesh.device_list()):
+                import torch
+
+                from ..ops import cuda_build
+                from ..parallel.cluster_encode import side_streams
+                torch.cuda.init()
+                side_streams(mesh)
+                for name in cuda_build.KERNEL_SOURCES:
+                    cuda_build.load(name)
+            self._mesh = mesh
+        except Exception as e:  # noqa: BLE001 — a host without a card
+            glog.warningf("repair: rebuild path not set up at start "
+                          "(%s: %s)", type(e).__name__, e)
+
     def _rebuild_ec(self, t: RepairTask) -> None:
         from ..parallel.cluster_rebuild import batch_rebuild, make_mesh
         t.phase = "rebuild"

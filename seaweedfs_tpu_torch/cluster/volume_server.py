@@ -527,9 +527,11 @@ class VolumeServer:
 
     def _ec_shard_infos(self) -> list[dict]:
         out = []
-        for vid, ev in self.ec_volumes.items():
+        # Snapshots: /admin/ec/mount and unmount change both maps from
+        # request threads while the pulse thread builds its beat.
+        for vid, ev in list(self.ec_volumes.items()):
             bits = ShardBits(0)
-            for sid in ev.shards:
+            for sid in list(ev.shards):
                 bits = bits.add_shard_id(sid)
             # The codec id rides every heartbeat so the master (and
             # through it the rebuild planner) knows each EC volume's
@@ -666,7 +668,17 @@ class VolumeServer:
         while not self._stop.wait(self.pulse_seconds):
             ticks += 1
             # Periodic full sync like the reference's EC beat (17x pulse).
-            self._send_heartbeat(full=(ticks % 17 == 0))
+            try:
+                self._send_heartbeat(full=(ticks % 17 == 0))
+            except Exception as e:  # noqa: BLE001 — one bad beat (a
+                # shard map mutated mid-snapshot) must not end the
+                # pulse: the master would sweep this node for good.
+                # The reference's loop dies here; the next full beat
+                # resends everything.
+                from ..utils import glog
+                glog.warningf("heartbeat to %s failed: %r",
+                              self.master_url, e)
+                self._need_full = True
             try:
                 self._lifecycle_tick()
             except Exception:  # noqa: BLE001 — never kill the heartbeat

@@ -84,7 +84,12 @@ def _wait_forever(servers: list, grace: float | None = None) -> int:
     signal.signal(signal.SIGINT, handler)
     signal.signal(signal.SIGTERM, handler)
     try:
-        stop.wait()
+        # Timed: a signal the kernel delivers to another thread only
+        # marks the handler pending, and a main thread blocked in an
+        # untimed wait never runs it (the reference's role then ignores
+        # SIGTERM for good).  Waking each second runs it.
+        while not stop.wait(1.0):
+            pass
     finally:
         # Graceful lifecycle: SIGTERM/SIGINT first DRAINS every role
         # that supports it — refuse new writes (503 + Retry-After so

@@ -13,7 +13,10 @@ two answers equal and returns the port's.
 this process (the port's on `device="cpu"`, the kernels' plain
 versions; the JAX package's under the suite's CPU platform), with the
 shell environment and client of the same package; the `pkg` fixture
-runs a test once per package.
+runs a test once per package.  `seed_placement` gives one package's
+file-id cookies and volume picks a seeded stream of their own;
+`grpc_pair_port` a server port below the ephemeral range whose gRPC
+twin (+10000) is free too.
 
 `count_plain_launches` lets chip_smoke's phases rehearse on the CPU.
 
@@ -33,6 +36,7 @@ import importlib
 import os
 import random
 import signal
+import socket
 import time
 
 import pytest
@@ -78,6 +82,36 @@ def both(scenario, seed: int = 0):
     return out[1]
 
 
+def grpc_pair_port() -> int:
+    """A port for a server whose gRPC plane binds port + 10000: both
+    free, and both below the ephemeral range (32768 and up on Linux),
+    where no outbound connection of this host takes them.  A server on
+    port 0 gets an ephemeral port, and its gRPC twin can then be the
+    source port of any connection in the suite."""
+    for _ in range(200):
+        port = random.SystemRandom().randrange(12000, 22768)
+        try:
+            with socket.socket() as a, socket.socket() as b:
+                a.bind(("127.0.0.1", port))
+                b.bind(("127.0.0.1", port + 10000))
+            return port
+        except OSError:
+            continue
+    raise RuntimeError("no free port pair below the ephemeral range")
+
+
+def seed_placement(monkeypatch, pkg: str, seed: int) -> None:
+    """Give `pkg`'s file-id cookies and write-volume picks a seeded
+    stream of their own.  Both draw from the process-wide `random`,
+    which a retry's backoff jitter also draws from: one retry under a
+    loaded host (a keep-alive connection the server had just closed)
+    shifts every later cookie and pick, and two runs store the same
+    bytes under different file ids."""
+    rng = random.Random(seed)
+    for name in ("topology.topology", "topology.volume_layout"):
+        monkeypatch.setattr(mod(pkg, name), "random", rng)
+
+
 def outcome(fn, *args, **kw):
     """("ok", value) or ("raise", exception class name, message)."""
     try:
@@ -100,12 +134,19 @@ def _reset_port_globals() -> None:
 
 
 @pytest.fixture(autouse=True)
-def hermetic_port_state():
+def hermetic_port_state(monkeypatch):
     """The port's per-host breakers, armed faults, wire-flow ledger,
     chunk and tier block caches and roofline ledger (which a volume
     server's heartbeat carries) are process-global: start and end every
     test clean.  A volume server's EC location caches and scrub daemon
-    live on the server, which each test builds anew."""
+    live on the server, which each test builds anew.  Both packages'
+    `rpc.free_port` gives ports below the ephemeral range
+    (`grpc_pair_port`): a server restarted on its port, or a gRPC plane
+    on port + 10000, otherwise finds it taken as the source port of some
+    connection of the suite."""
+    for pkg in PACKAGES:
+        monkeypatch.setattr(mod(pkg, "cluster.rpc"), "free_port",
+                            grpc_pair_port)
     _reset_port_globals()
     yield
     _reset_port_globals()

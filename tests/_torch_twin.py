@@ -32,7 +32,9 @@ gets that file's copy of the same package.  In the port's copy the
 volume server and the shell default to `device="cpu"`: the port's
 default is the card, which this host lacks.  Ids drawn from
 `secrets.token_hex` (hard-link ids) come from the seeded `random`
-during a run, alike in both packages.  A case may run after others on
+during a run, alike in both packages, and so do the bytes the test
+file itself draws from `os.urandom`; file-id cookies and volume picks
+draw from a seeded stream of their own (`seed_placement`).  A case may run after others on
 the same fixtures (`prelude`), where the file's module-scoped fixture
 carries state from one case to the next; and the port's copy of the
 source may take (text, replacement) edits (`port_subs`), for the flags a
@@ -46,7 +48,8 @@ and 1e11 and ints of 1e15 and more (wall-clock stamps in s, µs and ns);
 the class of an object that is not a plain value, which is recorded
 by its class name only; and a gRPC error's debug string (its status
 code and details are kept).  Bytes and strings longer than 4 KiB are
-recorded by length and sha256.
+recorded by length and sha256.  An assert a file's twin names in
+`unrecorded` for a case records only its outcome (see `TwinFile`).
 """
 
 from __future__ import annotations
@@ -68,10 +71,11 @@ import numpy as np
 import pytest
 
 from _torch_cluster import EPOCH_S, PACKAGES, PORT, Clock, \
-    _reset_port_globals
+    _reset_port_globals, seed_placement
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 _REF_NAME = re.compile(r"\bseaweedfs_tpu\b")
+_PORT_NAME = re.compile(r"\bseaweedfs_tpu_torch\b")
 _HOSTPORT = re.compile(r"(127\.0\.0\.1|localhost|0\.0\.0\.0):\d+")
 _ADDR = re.compile(r"0x[0-9a-fA-F]{6,}")
 _CMP = {"Eq": operator.eq, "NotEq": operator.ne, "Lt": operator.lt,
@@ -87,6 +91,7 @@ class Recorder:
     def __init__(self):
         self.records: list = []
         self.roots: list[str] = []
+        self.unrecorded: frozenset = frozenset()
 
     def text(self, s: str) -> str:
         for root in self.roots:
@@ -146,9 +151,11 @@ class Recorder:
             return ("str", len(s), hashlib.sha256(s.encode()).hexdigest())
         return s
 
-    def compare(self, op: str, a, b) -> bool:
+    def compare(self, op: str, a, b, src: str = "") -> bool:
         ok = _CMP[op](a, b)
-        if op in ("Eq", "NotEq"):
+        if src in self.unrecorded:
+            self.records.append(("unrecorded", src, bool(ok)))
+        elif op in ("Eq", "NotEq"):
             self.records.append((op, self.norm(a), self.norm(b)))
         elif op in ("In", "NotIn"):
             self.records.append((op, self.norm(a), bool(ok)))
@@ -156,8 +163,10 @@ class Recorder:
             self.records.append((op, bool(ok)))
         return ok
 
-    def truth(self, v) -> bool:
-        self.records.append(("truth", bool(v)))
+    def truth(self, v, src: str = "") -> bool:
+        self.records.append(("unrecorded", src, bool(v))
+                            if src in self.unrecorded
+                            else ("truth", bool(v)))
         return v
 
 
@@ -173,7 +182,11 @@ class _Raises:
 
     def __exit__(self, *exc):
         out = self.cm.__exit__(*exc)
-        self.rec.records.append(("raises", self.rec.norm(exc[1])))
+        if "raises" in self.rec.unrecorded:
+            self.rec.records.append(("unrecorded", "raises",
+                                     exc[1] is not None))
+        else:
+            self.rec.records.append(("raises", self.rec.norm(exc[1])))
         return out
 
 
@@ -190,6 +203,20 @@ class _Pytest:
 
     def __getattr__(self, name):
         return getattr(pytest, name)
+
+
+class _Os:
+    """The twin module's `os`: the real module, but the bytes the test
+    file draws from `urandom` (keys, payloads) come from the seeded
+    `random`, alike in both packages.  The servers it starts draw
+    from the real `os.urandom`."""
+
+    @staticmethod
+    def urandom(n: int) -> bytes:
+        return random.getrandbits(8 * n).to_bytes(n, "big") if n else b""
+
+    def __getattr__(self, name):
+        return getattr(os, name)
 
 
 def _fixture_marker(*args, **kw):
@@ -234,13 +261,16 @@ class _Rewrite(ast.NodeTransformer):
         self.generic_visit(node)
         t = node.test
         rec = ast.Name("__twin_rec__", ast.Load())
+        # The assert's text, in the JAX package's names: what an
+        # `unrecorded` entry names it by.
+        src = ast.Constant(_PORT_NAME.sub("seaweedfs_tpu", ast.unparse(t)))
         if isinstance(t, ast.Compare) and len(t.ops) == 1:
             call = ast.Call(ast.Attribute(rec, "compare", ast.Load()),
                             [ast.Constant(type(t.ops[0]).__name__),
-                             t.left, t.comparators[0]], [])
+                             t.left, t.comparators[0], src], [])
         else:
             call = ast.Call(ast.Attribute(rec, "truth", ast.Load()),
-                            [t], [])
+                            [t, src], [])
         node.test = call
         return node
 
@@ -317,6 +347,8 @@ def load(name: str, pkg: str, port_subs: tuple = ()) -> types.ModuleType:
     exec(compile(tree, mod.__file__, "exec"), mod.__dict__)
     if "pytest" in mod.__dict__:
         mod.pytest = _Pytest(mod.__twin_rec__)
+    if mod.__dict__.get("os") is os:
+        mod.os = _Os()
     return mod
 
 
@@ -369,13 +401,22 @@ class TwinFile:
     state from one case to the next (a bucket an earlier case made).
     `port_subs` edit the port's copy of the source: (text, replacement)
     pairs, for the flags a CPU caller of the port must pass (a
-    subprocess `server` takes `-device=cpu`)."""
+    subprocess `server` takes `-device=cpu`).  `unrecorded` maps a
+    case to the asserts (by their text as the reference writes it)
+    whose operands depend on the run, not on the package: a process's
+    random journal token, a count that depends on timing within one
+    package.  Both packages must still pass such an assert; only its
+    outcome is compared, not what it compared.  The entry "raises"
+    does the same for the case's `pytest.raises` blocks: that each
+    raised what it expects is compared, not what was raised."""
 
     def __init__(self, name: str, clocked: tuple = (), prelude=None,
-                 port_subs: tuple = ()):
+                 port_subs: tuple = (), unrecorded=None):
         self.name = name.removesuffix(".py")
         self.clocked = clocked
         self.prelude = dict(prelude or {})
+        self.unrecorded = {c: frozenset(a) for c, a in
+                           (unrecorded or {}).items()}
         self.port_subs = tuple(port_subs)
         self.ref = load(self.name, PACKAGES[0])
         load(self.name, PORT, self.port_subs)
@@ -429,8 +470,13 @@ class TwinFile:
             np.random.seed(seed)
             before = [self.cases[c] for c in self.prelude.get(case_id, ())]
             out.append(_run_one(load(self.name, pkg), case, pkg, root,
-                                self.clocked, before))
+                                self.clocked, before,
+                                self.unrecorded.get(case_id, frozenset()),
+                                seed))
         ref, port = out
+        named = self.unrecorded.get(case_id, frozenset())
+        hit = {r[1] for r in ref if r[0] == "unrecorded"}
+        assert named <= hit, f"{case_id}: no assert reads {named - hit}"
         for i, (a, b) in enumerate(zip(ref, port)):
             assert a == b, (f"assert #{i} of {case_id} records differently:"
                             f"\nJAX package: {a!r}\nport:        {b!r}")
@@ -494,10 +540,11 @@ def _seeded_token_hex(nbytes: int = 32) -> str:
 
 
 def _run_one(mod, case: Case, pkg: str, root, clocked=(),
-             before=()) -> list:
+             before=(), unrecorded=frozenset(), seed: int = 0) -> list:
     rec = mod.__twin_rec__
     rec.records = []
     rec.roots = [str(root)]
+    rec.unrecorded = unrecorded
     # Twin modules imported by this one record into the same run.
     for (name, p), m in _MODULES.items():
         if p == pkg:
@@ -518,6 +565,7 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=(),
     # Ids drawn from `secrets` (hard-link ids) come from the seeded
     # `random` instead, alike in both packages.
     mp.setattr(secrets, "token_hex", _seeded_token_hex)
+    seed_placement(mp, pkg, seed)
     clock = Clock(EPOCH_S)
     for name in clocked:
         mp.setattr(sys.modules.get(f"{pkg}.{name}")

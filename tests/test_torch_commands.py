@@ -26,6 +26,8 @@ from _torch_storage import twin
 
 pytestmark = pytest.mark.torch
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # The backup, offline and benchmark commands and the filer's (slice 11a).
 OFFERED = ("backup", "fix", "compact", "export", "benchmark", "watch",
            "scaffold", "filer")
@@ -213,3 +215,75 @@ def test_mount_without_fuse_fails_naming_what_is_missing(
     assert rc == 1
     assert missing in err and "cannot mount" in err
     assert "mounting" not in out
+
+
+# A role's wait for SIGTERM, with the signal delivered to another thread
+# of the process (the kernel may pick any thread that does not block it).
+_SIGTERM_ELSEWHERE = """\
+import importlib, signal, sys, threading, time
+servers = importlib.import_module(sys.argv[1] + ".command.servers")
+class Role:
+    def stop(self):
+        print("stopped", flush=True)
+sleeper = threading.Thread(target=time.sleep, args=(3600,), daemon=True)
+sleeper.start()
+def later():
+    time.sleep(0.3)
+    signal.pthread_kill(sleeper.ident, signal.SIGTERM)
+threading.Thread(target=later, daemon=True).start()
+servers._wait_forever([Role()])
+print("exited", flush=True)
+"""
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_sigterm_on_another_thread_stops_the_role_in_the_port_only(pkg):
+    """`_wait_forever` under a SIGTERM that lands on a thread other than
+    the main one: the JAX package's main thread waits without a timeout
+    and never runs the handler, so the role outlives its SIGTERM (the
+    rolling restart's volume subprocess that did not exit in 60 s); the
+    port's wakes each second, stops its roles and returns."""
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+    proc = subprocess.Popen([sys.executable, "-c", _SIGTERM_ELSEWHERE, pkg],
+                            env=env, stdout=subprocess.PIPE, text=True)
+    try:
+        out, _ = proc.communicate(timeout=6)
+        exited = True
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        exited = False
+    if pkg == PORT:
+        assert exited and out.split() == ["stopped", "exited"], out
+    else:
+        assert not exited and out == "", out
+
+
+@pytest.mark.parametrize("missing", ["/dev/fuse", "libfuse.so.2"])
+def test_reference_mount_without_fuse_dials_the_filer_first(
+        missing, tmp_path, monkeypatch):
+    """The JAX package's `weed mount` under the same patches: it has no
+    such check (ROADMAP queue 3).  It dials the filer before it looks
+    at FUSE, so with the filer given here (nothing listens) both cases
+    end in the filer's ConnectError escaping the command, nothing
+    printed and the missing piece never named."""
+    import ctypes
+    if missing == "/dev/fuse":
+        real = os.path.exists
+        monkeypatch.setattr(os.path, "exists",
+                            lambda p: p != "/dev/fuse" and real(p))
+    else:
+        def no_lib(name, *a, **k):
+            raise OSError(f"{name}: cannot open shared object file")
+        monkeypatch.setattr(ctypes, "CDLL", no_lib)
+    resilience = mod(PACKAGES[0], "cluster.resilience")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            pytest.raises(resilience.ConnectError) as ei:
+        mod(PACKAGES[0], "command").main(
+            ["mount", f"-dir={tmp_path}", "-filer=127.0.0.1:1"])
+    assert str(ei.value).startswith("127.0.0.1:1: ")
+    assert out.getvalue() == "" and missing not in err.getvalue()

@@ -332,11 +332,23 @@ def test_partition_holds_watermark_then_heals(mirror):
     assert sh.lag_view()["volumes"][str(vid)]["lag_seq"] == 0
 
 
+def lag_observed(sh) -> None:
+    """Wait until the shipper's lag rows (what a beat carries) show
+    nothing pending.  Both packages' `_ship_volume` ack the log before
+    they observe the lag again, so right after `wait_shipped` a row
+    can still hold the lag observed before the batch went out, and on
+    a loaded host that is more than the 0.05 s SLO."""
+    wait(lambda: all(r["lag_seq"] == 0 for r in
+                     sh.lag_view()["volumes"].values()), 20,
+         "the shipper never observed its lag after the ack")
+
+
 def test_healthz_degrades_on_lag_slo_breach_and_recovers(mirror):
     P, pr_master, pr_vs, _sbm, _sbv = mirror
     sh = pr_vs.shipper
     vid, _fid, col = _put(mirror, b"slo probe " * 8)
     wait_shipped(P, pr_vs, vid)
+    lag_observed(sh)
     pr_vs._send_heartbeat(full=True)
     status, doc = P.rpc.call_status(f"{pr_master.url()}/cluster/healthz")
     assert status == 200, doc.get("problems")
@@ -356,6 +368,7 @@ def test_healthz_degrades_on_lag_slo_breach_and_recovers(mirror):
         sh.paused = False
         sh.kick()
     wait_shipped(P, pr_vs, vid)
+    lag_observed(sh)
     pr_vs._send_heartbeat(full=True)
     status, doc = P.rpc.call_status(f"{pr_master.url()}/cluster/healthz")
     assert status == 200, doc.get("problems")

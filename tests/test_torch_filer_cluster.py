@@ -48,7 +48,7 @@ import pytest
 
 from _torch_cluster import (PACKAGES, PORT, LiveCluster,  # noqa: F401
                             cluster_deadline, hermetic_port_state, mod,
-                            pin_clocks)
+                            pin_clocks, seed_placement)
 
 pytestmark = [pytest.mark.torch,
               pytest.mark.usefixtures("cluster_deadline")]
@@ -126,6 +126,7 @@ def _orphans_after_rm(cluster, env, fs, files) -> None:
 
 def _scenario(pkg: str, root, monkeypatch) -> dict:
     random.seed(SEED)
+    seed_placement(monkeypatch, pkg, SEED)
     cluster = LiveCluster(pkg, root / pkg, n=4,
                           master_kw={"volume_size_limit_mb": 16})
     fs = None

@@ -25,7 +25,8 @@ import sqlite3
 
 import pytest
 
-from _torch_cluster import PACKAGES, PORT, hermetic_port_state, mod  # noqa: F401
+from _torch_cluster import (PACKAGES, PORT, grpc_pair_port,  # noqa: F401
+                            hermetic_port_state, mod)
 from _torch_twin import Recorder
 
 pytestmark = pytest.mark.torch
@@ -103,6 +104,7 @@ def _follower_then_leader(pkg: str, tmp_path) -> tuple:
     try:
         for i, handler in enumerate((follower, lambda q, b: dict(answer))):
             m = mod(pkg, "cluster.master").MasterServer(
+                port=grpc_pair_port(),
                 meta_dir=str(tmp_path / f"{pkg}{i}"), pulse_seconds=60)
             m._assign = handler
             m.start()

@@ -52,7 +52,7 @@ import pytest
 
 from _torch_cluster import (PACKAGES, PORT, LiveCluster,  # noqa: F401
                             cluster_deadline, hermetic_port_state, mod,
-                            pin_clocks)
+                            pin_clocks, seed_placement)
 
 pytestmark = [pytest.mark.torch,
               pytest.mark.usefixtures("cluster_deadline")]
@@ -245,6 +245,13 @@ def _consume(pkg, burl) -> list:
 
 def _scenario(pkg: str, root, monkeypatch) -> dict:
     random.seed(SEED)
+    seed_placement(monkeypatch, pkg, SEED)
+    # A partition tail also flushes once it is 2 s old, so the number
+    # of segments (chunks, and fsck's count) would follow the run's
+    # speed: here tails flush by size and on the broker's stop only.
+    init = mod(pkg, "messaging.topic_log").TopicPartitionLog.__init__
+    monkeypatch.setattr(init, "__defaults__",
+                        (init.__defaults__[0], float("inf")))
     data = _data()
     cluster = LiveCluster(pkg, root / pkg, n=4,
                           master_kw={"volume_size_limit_mb": 16})

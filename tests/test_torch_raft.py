@@ -297,6 +297,15 @@ def test_master_ha_volume_id_consensus_across_failover(tmp_path):
             leader.stop()
             survivors = [m for m in masters if m is not leader]
             new_leader = wait_master_leader(P, survivors, registered=True)
+            # The node row can land before its full beat's volume list;
+            # an assign in that window grows a volume at the new leader
+            # in one run and not in the next.  Assign once the new
+            # leader holds every volume the node has, so that neither
+            # leader grows more than the first assign did.
+            held = sum(len(loc.volumes) for loc in vs.store.locations)
+            wait_for(lambda: sum(len(dn.volumes) for dn in
+                                 new_leader.topo.leaves()) == held,
+                     what="the node's volumes at the new leader")
             assign_after_reregistration(P, new_leader)
             covered = new_leader.topo._max_volume_id >= vid1
             grown = new_leader.topo.next_volume_id()
