@@ -167,7 +167,24 @@ Phases; any failure raises and the script exits non-zero:
              what each step needs: the holder's encode as many K2 as the
              copy's, the batch one step per chunk of the longer volume
              with V = 2 while both last, one K1 per lost interval read,
-             the rebuild one launch per sub-batch.
+             the rebuild one launch per sub-batch.  Then an LRC(10,2,2)
+             pass in the master and surviving servers, with its own
+             launch windows (the reference's acceptance flow,
+             tests/test_codecs.py): one volume of collection "lrc10"
+             filled past 95 % of 128 MiB (of the limit where less); `lock; ec.encode -volumeId V
+             -codec lrc` through a shell process (K2 10->4 in the
+             holder), every shard, .ecx and .ecc entry held against
+             write_ec_files(codec="lrc") of its sealed copy; shards 1 and
+             6 deleted (one per local group) and every needle read back
+             (K1 generic<=16, 5->1, in the volume servers; it must
+             launch), then `ec.rebuild -volumeId V -batch` here; shards
+             4, 9, 12 and 13 deleted, 300 seeded reads, a rebuild; shard
+             3 deleted and rebuilt from 5 shards, which the shell must
+             say and SeaweedFS_ec_repair_read_bytes_total{codec="lrc"}
+             here must count (exactly 5 x the shard size).  Every
+             rebuilt shard and its .ecc entry must equal the original's;
+             K1 in the volume servers must lie between the lost intervals
+             read and those of every loss so far.
 
 11. ha     — an HA cluster, its mirror and the autopilot: upstream's
              `weed master -peers=m1,m2,m3 -volumeSizeLimitMB=30000
@@ -291,7 +308,9 @@ p50/p99 ms, full-beat apply ms, the master's RSS, the device rows), a
 {"live_cluster": ...} line (walls and GB/s of the write, both encodes,
 the rebuild and the read-back, degraded-read p50/p99, launches per kernel
 and step in the shell's process and the volume servers, device busy
-share, every process's RSS), a {"ha_cluster": ...} line (walls and GB/s
+share, every process's RSS; under "lrc" the LRC pass's walls, GB/s,
+degraded p50/p99, launches per instantiation and process, repair-read
+bytes), a {"ha_cluster": ...} line (walls and GB/s
 per step, seconds to a new leader, to mirror convergence and to repair,
 degraded-read p50/p99, the backup's and the mirror's checks, benchmark
 rates, launches per kernel, step and process, every process's RSS), a
@@ -435,6 +454,16 @@ LIVE_READS = 300
 # 6's BATCH_BYTES; `ec.rebuild -batch` keeps its default.
 LIVE_BATCH_MB = 2048
 LIVE_REBUILD_BUDGET = 256 << 20  # ec.rebuild's -maxBatchMB default
+# Phase 10's LRC(10,2,2) pass: its collection, the offset of its needles'
+# seed from --seed, and its losses in the reference's acceptance flow
+# (tests/test_codecs.py): one shard of each local group; one of each
+# group and both global parities; one shard alone (a 5-shard rebuild).
+LRC_COLLECTION = "lrc10"
+LRC_SEED = 20
+# The LRC volume is sealed once it holds LIVE_FULL_PERCENT of this many
+# MiB (of --live-mib where that is less): the script's time limit.
+LRC_FILL_MIB = 128
+LRC_LOSSES = ((1, 6), (4, 9, 12, 13), (3,))
 # Phase 11: upstream's HA layout, `weed master -peers=m1,m2,m3` (three
 # raft masters, each armed with -repair), HA_NODES `weed volume -max=7
 # -replicate.peer=<standby master>` servers in HA_RACKS racks, and a
@@ -2266,20 +2295,56 @@ def wait_for(pred, what: str, procs, timeout: float = 90.0):
         time.sleep(0.1)
 
 
-def node_device_rows(murl: str, nodes, since: float, procs) -> dict:
+def node_device_rows(murl: str, nodes, since: float, procs,
+                     counts=None) -> dict:
     """/cluster/device's kernel rows of each of `nodes` (volume server
     URLs) from a heartbeat the master received after `since` (its
-    clock), as {node: {catalog key: count}}: every beat carries the
-    node's absolute ledger rows, so a beat after a step holds them all."""
+    clock), as {node: {catalog key: count}} (or what `counts` makes of a
+    node's table): every beat carries the node's absolute ledger rows,
+    so a beat after a step holds them all."""
     from seaweedfs_tpu_torch.cluster import rpc
+    counts = counts or device_counts
 
     def fresh():
         doc = rpc.call(murl + "/cluster/device", timeout=120.0)
         got = doc["nodes"]
         if all(n in got and (got[n]["ts"] or 0) > since for n in nodes):
-            return {n: device_counts(got[n]) for n in nodes}
+            return {n: counts(got[n]) for n in nodes}
         return None
     return wait_for(fresh, "fresh heartbeats on /cluster/device", procs)
+
+
+def geometry_counts(doc: dict) -> dict:
+    """A kernel table as {"catalog key geometry": count}."""
+    out: dict = {}
+    for r in doc["kernels"]:
+        key = f"{r['kernel']} {r['geometry']}"
+        out[key] = out.get(key, 0) + r["count"]
+    return out
+
+
+def by_instantiation(rows: dict) -> dict:
+    """geometry_counts rows of a volume server as launches per kernel
+    and instantiation: the catalog key names the kernel (as in
+    vs_kernel_launches), the geometry's rows in and out the
+    instantiation coder_cuda picks for them."""
+    from seaweedfs_tpu_torch.ops.coder_cuda import (K1_VARIANTS,
+                                                    K2_VARIANTS, k1_variant,
+                                                    k2_variant)
+    out: dict = {"rs_bitmatrix": {}, "rs_bitmatrix_crc": {}}
+    for key, n in rows.items():
+        kernel, geometry = key.split()
+        out_rows, in_rows = map(int, geometry.split("x")[:2])
+        if kernel == "encode_crc_kernel":
+            side, name = "rs_bitmatrix_crc", \
+                K2_VARIANTS[k2_variant(in_rows, out_rows)]
+        elif kernel in ("reconstruct_kernel", "encode_kernel"):
+            side, name = "rs_bitmatrix", \
+                K1_VARIANTS[k1_variant(in_rows, out_rows)]
+        else:
+            check(False, f"a volume server recorded {key}")
+        out[side][name] = out[side].get(name, 0) + n
+    return out
 
 
 def rows_delta(before: dict, after: dict) -> dict:
@@ -2339,9 +2404,11 @@ def ecc_entries(path: str) -> dict:
         return {int(s): c for s, c in json.load(f)["shards"].items()}
 
 
-def encode_sealed_copies(env, vids, work: str, dev) -> tuple[dict, dict]:
+def encode_sealed_copies(env, vids, work: str, dev, codec: str = "rs"
+                         ) -> tuple[dict, dict]:
     """Seal each volume of `vids` (readonly on every holder), copy its
-    .dat and .idx here and encode the copy with write_ec_files on `dev`:
+    .dat and .idx here and encode the copy with write_ec_files on `dev`
+    under `codec`:
     ({vid: sha256 of each shard, .ecc entries, .ecx sha256, base, .dat
     bytes}, {vid: launches per kernel}).  Each copy keeps its .ecx, .vif
     and shard 0 (for locating needles); the rest is removed."""
@@ -2362,7 +2429,7 @@ def encode_sealed_copies(env, vids, work: str, dev) -> tuple[dict, dict]:
                              f"volume={vid}&ext={ext}", base + ext)
         write_sorted_file_from_idx(base)
         reset_counts()
-        write_ec_files(base, device=dev)
+        write_ec_files(base, device=dev, codec=codec)
         launches[vid] = {k: c["launches"] for k, c in read_counts().items()}
         reference[vid] = {
             "shards": {s: sha256_file(f"{base}.ec{s:02d}")
@@ -2428,11 +2495,58 @@ def rebuild_launches(lost: dict, shard_bytes: dict,
     return n
 
 
+def fill_collection(murl: str, collection: str, blob, sizes, mark: float,
+                    count: int) -> tuple[dict, dict, list, float]:
+    """Upload needles (`sizes` yields (offset, size) into `blob`) to
+    `collection` through WeedClient from LIVE_WRITERS threads until
+    `count` of its volumes hold `mark` bytes each: ({fid: (offset,
+    size)}, {vid: bytes}, the `count` volumes that passed, the wall)."""
+    from seaweedfs_tpu_torch.cluster.client import WeedClient
+    client = WeedClient(murl)
+    fids: dict = {}  # fid -> (offset, size)
+    per_vid: dict = {}
+    lock = threading.Lock()
+    stop = threading.Event()
+    errors: list = []
+
+    def writer():
+        while not stop.is_set():
+            with lock:
+                off, size = next(sizes)
+            try:
+                fid = client.upload_data(bytes(blob[off:off + size]),
+                                         collection=collection)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+                stop.set()
+                return
+            vid = int(fid.split(",")[0])
+            with lock:
+                fids[fid] = (off, size)
+                per_vid[vid] = per_vid.get(vid, 0) + size
+                full = [v for v, n in per_vid.items() if n >= mark]
+                if len(full) >= count:
+                    stop.set()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=writer) for _ in range(LIVE_WRITERS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"uploads failed: {errors[:3]}")
+    wall = time.perf_counter() - t0
+    vids = sorted(v for v, n in per_vid.items() if n >= mark)[:count]
+    check(len(vids) == count, f"volumes filled: {per_vid}")
+    return fids, per_vid, vids, wall
+
+
 def read_every_needle(masters: list[str], fids: dict, blob,
-                      workers: int) -> float:
+                      workers: int, lat: list | None = None) -> float:
     """Download every fid of `fids` ({fid: (offset, size)} into `blob`)
     through WeedClient from `workers` threads; fail on any error or
-    differing byte.  Returns the wall."""
+    differing byte.  Returns the wall; each download's seconds go to
+    `lat` when given."""
     from seaweedfs_tpu_torch.cluster.client import WeedClient
     it = iter(sorted(fids.items()))
     lock = threading.Lock()
@@ -2447,7 +2561,10 @@ def read_every_needle(masters: list[str], fids: dict, blob,
                 return
             fid, (off, size) = nxt
             try:
+                t0 = time.perf_counter()
                 ok = c.download(fid) == blob[off:off + size]
+                if lat is not None:
+                    lat.append(time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(f"{fid}: {e!r}")
                 return
@@ -2528,46 +2645,10 @@ def phase_live_cluster(torch, dev, args) -> dict:
         # -- write: three volumes of one collection past the fill mark ----
         rpc.call(f"{murl}/vol/grow?count={LIVE_VOLUMES}"
                  f"&collection={LIVE_COLLECTION}", "POST")
-        client = WeedClient(murl)
         blob, sizes = live_needles(args.seed, LIVE_BLOB_MIB * MIB)
-        fids: dict = {}  # fid -> (offset, size)
-        per_vid: dict = {}
-        lock = threading.Lock()
-        stop = threading.Event()
-        errors: list = []
-
-        def writer():
-            while not stop.is_set():
-                with lock:
-                    off, size = next(sizes)
-                try:
-                    fid = client.upload_data(bytes(blob[off:off + size]),
-                                             collection=LIVE_COLLECTION)
-                except Exception as e:  # noqa: BLE001 — reported below
-                    errors.append(repr(e))
-                    stop.set()
-                    return
-                vid = int(fid.split(",")[0])
-                with lock:
-                    fids[fid] = (off, size)
-                    per_vid[vid] = per_vid.get(vid, 0) + size
-                    full = [v for v, n in per_vid.items()
-                            if n >= limit * LIVE_FULL_PERCENT / 100]
-                    if len(full) >= LIVE_VOLUMES:
-                        stop.set()
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=writer)
-                   for _ in range(LIVE_WRITERS)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        check(not errors, f"uploads failed: {errors[:3]}")
-        wall = time.perf_counter() - t0
-        vids = sorted(v for v, n in per_vid.items()
-                      if n >= limit * LIVE_FULL_PERCENT / 100)[:LIVE_VOLUMES]
-        check(len(vids) == LIVE_VOLUMES, f"volumes filled: {per_vid}")
+        fids, per_vid, vids, wall = fill_collection(
+            murl, LIVE_COLLECTION, blob, sizes,
+            limit * LIVE_FULL_PERCENT / 100, LIVE_VOLUMES)
         written = sum(per_vid.values())
         out["walls_s"]["write"] = wall
         out["gb_s"]["write"] = written / wall / 1e9
@@ -2782,6 +2863,9 @@ def phase_live_cluster(torch, dev, args) -> dict:
                     totals[k] += side.get(k, 0)
         out["launch_totals"] = totals
         check(all(totals.values()), f"phase 10 launches {totals}")
+
+        out["lrc"] = lrc_pass(dev, args, env, murl, mport,
+                              {n: dirs[n] for n in live}, procs, work)
     finally:
         if env is not None:
             env.close()
@@ -2797,6 +2881,251 @@ def phase_live_cluster(torch, dev, args) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"live cluster: {json.dumps(out['walls_s'])}")
+    return out
+
+
+def node_steps(before: dict, after: dict) -> dict:
+    """Per volume server that launched anything between two
+    node_device_rows(..., geometry_counts) reads, its launches per kernel
+    and instantiation."""
+    out = {}
+    for node in after:
+        step = rows_delta({node: before.get(node, {})},
+                          {node: after[node]})
+        if step:
+            out[node] = by_instantiation(step)
+    return out
+
+
+def lrc_pass(dev, args, env, murl: str, mport: int, dirs: dict, procs,
+             work: str) -> dict:
+    """Phase 10's LRC(10,2,2) pass, in the master and surviving volume
+    servers (`dirs`: node -> directory) after the RS steps, with launch
+    windows of its own: the reference's acceptance flow
+    (tests/test_codecs.py test_cluster_lrc_acceptance) at phase 10's
+    limit.  One volume of LRC_COLLECTION filled past LIVE_FULL_PERCENT
+    of LRC_FILL_MIB; `lock; ec.encode -volumeId V -codec lrc` through a
+    shell process (K2 10->4 in the holder), every shard, .ecx and .ecc
+    entry held against
+    write_ec_files(codec="lrc") of its sealed copy; then each loss of
+    LRC_LOSSES: the shards deleted on their holders, reads through the
+    client (every needle after the first loss, LIVE_READS after the
+    second; K1 in the volume servers for each interval on a lost shard,
+    5->1 from its local group where the group can solve it), `ec.rebuild
+    -volumeId V -batch` here, every rebuilt shard and .ecc entry equal
+    to the original's.  The single-shard rebuild must read 5 shards,
+    exactly 5 x the shard size in SeaweedFS_ec_repair_read_bytes_total
+    {codec="lrc"}, and say so."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.shell import run_command
+    from seaweedfs_tpu_torch.stats.metrics import ec_repair_read_bytes_total
+
+    t_pass = time.perf_counter()
+    live = list(dirs)
+    out: dict = {"reduced": {"volume_size_limit_mb": [30000, args.live_mib]},
+                 "walls_s": {}, "gb_s": {}, "degraded_read_ms": {},
+                 "launches": {}, "repair_read_bytes": {}}
+    # The encoding shell process starts now and is held once imported
+    # (HELD_SHELL), so that its start overlaps the writes.
+    trigger = os.path.join(work, "shell_lrc.go")
+    shell_log = os.path.join(work, "shell_lrc.log")
+    shell = port_process(
+        [trigger, "shell", f"-device={dev.type}",
+         f"-master=127.0.0.1:{mport}"], shell_log,
+        port_launch(dev, HELD_SHELL))
+    evs: dict = {}
+    try:
+        # -- 1. one volume of a collection of its own past the fill mark --
+        rpc.call(f"{murl}/vol/grow?count=1&collection={LRC_COLLECTION}",
+                 "POST")
+        blob, sizes = live_needles(args.seed + LRC_SEED,
+                                   LIVE_BLOB_MIB * MIB)
+        fill_mib = min(args.live_mib, LRC_FILL_MIB)
+        if fill_mib < args.live_mib:
+            out["reduced"]["lrc_volume_mib"] = [args.live_mib, fill_mib]
+        fids, per_vid, (vid,), wall = fill_collection(
+            murl, LRC_COLLECTION, blob, sizes,
+            fill_mib * MIB * LIVE_FULL_PERCENT / 100, 1)
+        fids = {f: v for f, v in fids.items()
+                if int(f.split(",")[0]) == vid}
+        out["walls_s"]["write"] = wall
+        out["gb_s"]["write"] = sum(per_vid.values()) / wall / 1e9
+        out["volume"] = {"id": vid, "bytes": per_vid[vid],
+                         "needles": len(fids)}
+
+        # -- 2. ec.encode -codec lrc in a shell process: K2 in the holder -
+        reference, ref_k = encode_sealed_copies(env, [vid], work, dev,
+                                                codec="lrc")
+        ref = reference[vid]
+        rows0 = node_device_rows(murl, live, 0.0, procs,
+                                 geometry_counts)
+        # The admin lock is the shell process's while it encodes.
+        run_command(env, "unlock")
+        wait_for(lambda: os.path.exists(trigger + ".ready"),
+                 "the shell process's imports", procs + [shell])
+        with open(trigger + ".tmp", "w") as f:
+            f.write(f"lock\nec.encode -volumeId {vid} -codec lrc\n")
+        t0 = time.perf_counter()
+        os.replace(trigger + ".tmp", trigger)
+        try:
+            rc = shell.wait(600)
+        except subprocess.TimeoutExpired:
+            shell.kill()
+            shell.wait()
+            check(False, "shell ec.encode -codec lrc hung")
+        wall = time.perf_counter() - t0
+        with open(shell_log) as f:
+            shell_out = f.read()
+        check(rc == 0 and f"volume {vid} -> ec shards" in shell_out,
+              f"shell ec.encode -codec lrc exited {rc}: "
+              f"{shell_out[-2000:]}")
+        # From the held shell's release: its imports ran beside the writes.
+        out["walls_s"]["encode"] = wall
+        out["gb_s"]["encode"] = per_vid[vid] / wall / 1e9
+        lookup = rpc.call(f"{murl}/dir/lookup?volumeId={vid}")
+        check(lookup.get("ecCodec") == "lrc"
+              and env.ec_codec(vid) == "lrc",
+              f"volume {vid}'s codec: the master's lookup says "
+              f"{lookup.get('ecCodec')!r}, the shell {env.ec_codec(vid)!r}")
+        rows1 = node_device_rows(murl, live, time.time(), procs,
+                                 geometry_counts)
+        nodes = node_steps(rows0, rows1)
+        step = by_instantiation(rows_delta(rows0, rows1))
+        out["launches"]["encode"] = {"volume_servers": nodes,
+                                     "write_ec_files_here": ref_k[vid]}
+        check({k: sum(v.values()) for k, v in step.items()} == ref_k[vid]
+              and len(nodes) == 1,
+              f"LRC encode launched {nodes}, expected {ref_k[vid]} in the "
+              f"holder (write_ec_files of the same .dat here)")
+        _holders, ecc_checked = check_encoded_shards(env, dirs, reference)
+        run_command(env, "lock")
+        out["shards_checked"] = 14
+        out["ecc_entries_checked"] = ecc_checked
+
+        # -- 3-5. each loss: delete, read through the client, rebuild -----
+        evs = {vid: EcVolume(ref["base"], vid=vid, device=dev)}
+        shard_bytes = os.path.getsize(ref["base"] + ".ec00")
+        rng = np.random.default_rng(args.seed + LRC_SEED)
+        earlier: list = []
+        rows_a = rows1
+        for i, lost in enumerate(LRC_LOSSES):
+            name = "lost_" + "_".join(map(str, lost))
+            locs = env.ec_shard_locations(vid)
+            for sid in lost:
+                for url in locs[sid]:
+                    rpc.call_json(f"http://{url}/admin/ec/delete_shards",
+                                  "POST", {"volume": vid, "shards": [sid]})
+            wait_for(lambda: not set(lost)
+                     & set(env.ec_shard_locations(vid)),
+                     f"the master to drop shards {lost}", procs)
+            if i == 0:
+                read = dict(fids)
+            elif i == 1:
+                ordered = sorted(fids)
+                n_reads = min(LIVE_READS, len(ordered))
+                if n_reads < LIVE_READS:
+                    out["reduced"]["lrc_reads_after_second_loss"] = \
+                        [LIVE_READS, n_reads]
+                read = {ordered[j]: fids[ordered[j]] for j in
+                        rng.choice(len(ordered), n_reads, replace=False)}
+            else:
+                read = {}
+            if read:
+                lat: list = []
+                wall = read_every_needle([murl], read, blob, LIVE_WRITERS,
+                                         lat)
+                out["walls_s"][f"read_{name}"] = wall
+                out["gb_s"][f"read_{name}"] = \
+                    sum(size for _o, size in read.values()) / wall / 1e9
+                out["degraded_read_ms"][name] = {
+                    "p50": pct_ms(lat, 50), "p99": pct_ms(lat, 99),
+                    "reads": len(lat)}
+                # The window opens where the last one closed: the last
+                # rebuild ran here, so the volume servers launch only
+                # for these reads.
+                rows_b = node_device_rows(murl, live, time.time(), procs,
+                                          geometry_counts)
+                nodes = node_steps(rows_a, rows_b)
+                recorded = set(rows_delta(rows_a, rows_b))
+                rows_a = rows_b
+                k1 = sum(sum(n["rs_bitmatrix"].values())
+                         for n in nodes.values())
+                # Each lost interval read is rebuilt at least once; a
+                # reader whose cached shard map predates the last rebuild
+                # may rebuild an interval of an earlier loss too.
+                need = lost_intervals(evs, {vid: list(lost)}, read)
+                need_all = lost_intervals(evs, {vid: list(lost) + earlier},
+                                          read)
+                out["launches"][f"read_{name}"] = {
+                    "volume_servers": nodes, "lost_intervals_read": need,
+                    "lost_intervals_with_earlier_losses": need_all}
+                check(all(k.startswith("reconstruct_kernel ")
+                          for k in recorded),
+                      f"reads after losing {lost} recorded {recorded}")
+                check(need <= k1 <= need_all and need > 0,
+                      f"reads after losing {lost}: {k1} K1 in the volume "
+                      f"servers for {need} lost intervals read "
+                      f"({need_all} with the earlier losses)")
+                if i == 0:
+                    local = sum(n["rs_bitmatrix"].get("generic<=16", 0)
+                                for n in nodes.values())
+                    out["k1_generic16_in_volume_servers"] = local
+                    check(local > 0, "K1 generic<=16 (the local 5->1 "
+                                     f"solve) never launched: {nodes}")
+            reset_counts()
+            before = ec_repair_read_bytes_total.value(codec="lrc")
+            t0 = time.perf_counter()
+            msg = run_command(env, f"ec.rebuild -volumeId {vid} -batch")
+            wall = time.perf_counter() - t0
+            here = read_counts()
+            got = ec_repair_read_bytes_total.value(codec="lrc") - before
+            check(f"volume {vid}: rebuilt shards {list(lost)}" in msg,
+                  f"ec.rebuild after losing {lost}: {msg}")
+            out["walls_s"][f"rebuild_{name}"] = wall
+            out["gb_s"][f"rebuild_{name}"] = \
+                shard_bytes * len(lost) / wall / 1e9
+            out["repair_read_bytes"][name] = got
+            n_steps = sum(c["launches"] for c in here.values())
+            check(n_steps == 1, f"ec.rebuild of one volume launched {here}")
+            wait_for(lambda: sorted(env.ec_shard_locations(vid))
+                     == list(range(14)), "the master to list 14 shards",
+                     procs)
+            files = shard_files(dirs, vid)
+            check(sorted(files) == list(range(14)),
+                  f"volume {vid} after the rebuild: {sorted(files)}")
+            for sid in lost:
+                path = files[sid][1]
+                check(sha256_file(path) == ref["shards"][sid],
+                      f"rebuilt shard {vid}.{sid} differs from its original")
+                check(ecc_entries(path[:-5] + ".ecc").get(sid)
+                      == ref["ecc"][sid],
+                      f"rebuilt shard {vid}.{sid}: .ecc entry differs")
+            out["launches"][f"rebuild_{name}"] = {
+                "shell": {k: c["by_instantiation"] for k, c in here.items()}}
+            if len(lost) == 1:
+                check("read 5 shards vs 10 for RS" in msg,
+                      f"single-shard rebuild: {msg}")
+                check(got == 5 * shard_bytes,
+                      f"single-shard rebuild read {got} bytes, not 5 x "
+                      f"{shard_bytes}")
+            earlier += list(lost)
+    finally:
+        for ev in evs.values():
+            ev.close()
+        if shell.poll() is None:
+            shell.kill()
+            shell.wait()
+    totals = {"rs_bitmatrix": 0, "rs_bitmatrix_crc": 0}
+    for s in out["launches"].values():
+        sides = list(s.get("volume_servers", {}).values())
+        sides += [s["shell"]] if "shell" in s else []
+        for side in sides:
+            for k in totals:
+                totals[k] += sum(side.get(k, {}).values())
+    out["launch_totals"] = totals
+    out["wall_s"] = time.perf_counter() - t_pass
+    log(f"live cluster, LRC: {json.dumps(out['walls_s'])}")
     return out
 
 
@@ -2826,6 +3155,19 @@ HELD = (
     "open(sys.argv[1] + '.ready', 'w').close()\n"
     "while not os.path.exists(sys.argv[1]):\n"
     "    time.sleep(0.01)\n"
+    "del sys.argv[1]\n")
+
+
+# A `weed shell` held as HELD holds a command, with the shell's modules
+# (and torch) imported; the file that releases it holds the shell
+# commands to run, one per line.
+HELD_SHELL = (
+    "import os, time\n"
+    "import seaweedfs_tpu_torch.shell\n"
+    "open(sys.argv[1] + '.ready', 'w').close()\n"
+    "while not os.path.exists(sys.argv[1]):\n"
+    "    time.sleep(0.01)\n"
+    "sys.argv += open(sys.argv[1]).read().splitlines()\n"
     "del sys.argv[1]\n")
 
 
@@ -5877,6 +6219,7 @@ def main() -> int:
              for s in STORAGE_STEPS)
          + cluster["window_launches"]["rs_bitmatrix"]
          + live["launch_totals"]["rs_bitmatrix"]
+         + live["lrc"]["launch_totals"]["rs_bitmatrix"]
          + ha["launch_totals"]["rs_bitmatrix"]
          + filer["launch_totals"]["rs_bitmatrix"]
          + gateway["launch_totals"]["rs_bitmatrix"],
@@ -5891,6 +6234,7 @@ def main() -> int:
              for s in STORAGE_STEPS)
          + cluster["window_launches"]["rs_bitmatrix_crc"]
          + live["launch_totals"]["rs_bitmatrix_crc"]
+         + live["lrc"]["launch_totals"]["rs_bitmatrix_crc"]
          + ha["launch_totals"]["rs_bitmatrix_crc"]
          + filer["launch_totals"]["rs_bitmatrix_crc"]
          + gateway["launch_totals"]["rs_bitmatrix_crc"],

@@ -504,6 +504,17 @@ class MasterServer:
     def start(self) -> None:
         if self.repair.enabled:
             self.repair.prepare()
+        if self.raft is not None:
+            # The device stack /cluster/device and /debug/device report
+            # (torch, the card's context, its probed peaks) is set up now,
+            # before an HA master serves.  Done in the first of those
+            # requests (as the JAX package does), it held the interpreter
+            # lock past the raft election timeout (1.8-2.4 s on an H100
+            # host, the timeout 0.6-1.2 s): a follower whose topology held
+            # no EC volume took over and answered 404 for it until each
+            # holder beat again.
+            from ..stats import roofline as _roofline
+            _roofline.probe_peaks()
         self.server.start()
         self._sweeper.start()
         if self.raft is not None:

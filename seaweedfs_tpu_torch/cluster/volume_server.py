@@ -1265,6 +1265,22 @@ class VolumeServer:
         if data is not None:
             return data
         # 3. reconstruct from >=10 other shard intervals.
+        try:
+            return self._reconstruct_shard_interval(ev, sid, off, size)
+        except rpc.RpcError:
+            # The cached shard map can predate a rebuild or a move (a
+            # full map is trusted for 37 min, a partial one for 7): read
+            # the master's map now, and the interval once more from
+            # where it places the shards.
+            fresh = self._ec_shard_locations(ev.vid, refresh=True)
+            if fresh == locations:
+                # As the failed solve left it: no map, so the next read
+                # asks the master at once.
+                self._ec_loc_cache.pop(ev.vid, None)
+                raise
+        data = self._fetch_shard_interval(ev, fresh, sid, off, size)
+        if data is not None:
+            return data
         return self._reconstruct_shard_interval(ev, sid, off, size)
 
     def _reconstruct_shard_interval(self, ev: EcVolume, sid: int,

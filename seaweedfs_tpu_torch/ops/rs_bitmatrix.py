@@ -75,3 +75,34 @@ def decode_bitmatrix(data_shards: int, total_shards: int,
     b = expand_bitmatrix(mat)
     b.setflags(write=False)  # cached: must not be mutated by callers
     return b, tuple(used)
+
+
+# ---------------------------------------------------------------------------
+# Host-side bit (un)packing helpers — numpy oracle for the bit-matrix form
+# ---------------------------------------------------------------------------
+
+
+def unpack_bits(shards: np.ndarray) -> np.ndarray:
+    """(k, n) uint8 bytes -> (8k, n) uint8 bits, LSB-first per shard row."""
+    k, n = shards.shape
+    shifts = np.arange(8, dtype=np.uint8)
+    bits = (shards[:, None, :] >> shifts[None, :, None]) & 1  # (k, 8, n)
+    return bits.reshape(8 * k, n)
+
+
+def pack_bits(bits: np.ndarray) -> np.ndarray:
+    """(8r, n) uint8 bits -> (r, n) uint8 bytes, LSB-first."""
+    r8, n = bits.shape
+    r = r8 // 8
+    weights = (1 << np.arange(8, dtype=np.uint16))
+    grouped = bits.reshape(r, 8, n).astype(np.uint16)
+    return (grouped * weights[None, :, None]).sum(axis=1).astype(np.uint8)
+
+
+def encode_bits_numpy(data: np.ndarray, data_shards: int, total_shards: int,
+                      kind: str = "vandermonde") -> np.ndarray:
+    """Bit-sliced encode in numpy (oracle for the bit-matrix formulation)."""
+    b = parity_bitmatrix(data_shards, total_shards, kind)
+    bits = unpack_bits(np.asarray(data, np.uint8))
+    parity_bits = (b.astype(np.int32) @ bits.astype(np.int32)) & 1
+    return pack_bits(parity_bits.astype(np.uint8))

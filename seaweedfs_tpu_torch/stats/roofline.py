@@ -252,7 +252,7 @@ def effective_gf2_work(bitmatrix, max_rounds: int = 100000) -> int:
 # calls (torch._int_mm, a bf16 matmul, an elementwise add, copies): they
 # measure what the device offers, not a kernel of this package.
 
-_PEAKS_VERSION = 1
+_PEAKS_VERSION = 2
 _PROBE_DTYPES = ("int8", "bf16")
 _peaks_lock = threading.Lock()
 # (backend, device kind) -> peaks doc

@@ -5,7 +5,9 @@ test_configure_notify.py, and the gateway, replication and queue files
 (test_s3*.py, test_streaming_upload.py, test_webdav.py,
 test_messaging.py, test_query.py, test_mount.py, test_replication*.py,
 test_kafka_queue.py, test_pubsub_queue.py, and the gateway cases of
-test_tier.py, test_tenancy.py and test_cli.py).
+test_tier.py, test_tenancy.py and test_cli.py), and of the robustness,
+host, codec, coder, roofline, observability and profiling suites (the
+test_torch_*_twins.py files).
 
 `TwinFile("test_filer.py")` reads that file and compiles two copies of
 it: the JAX package's as written, and the port's, with every name of
@@ -33,8 +35,13 @@ volume server and the shell default to `device="cpu"`: the port's
 default is the card, which this host lacks.  Ids drawn from
 `secrets.token_hex` (hard-link ids) come from the seeded `random`
 during a run, alike in both packages, and so do the bytes the test
-file itself draws from `os.urandom`; file-id cookies and volume picks
-draw from a seeded stream of their own (`seed_placement`).  A case may run after others on
+file itself draws from `os.urandom` (its `import os`, at any depth, is
+the twin's); file-id cookies and volume picks, and trace and span ids,
+draw from seeded streams of their own (`seed_placement`, `_SeededOs`).
+An assert on a thread other than the case's own is compared as one of
+a set: how often such a thread loops, and how its asserts interleave
+with the case's, is the scheduler's.  A case whose test holds no assert
+passes by passing in both packages.  A case may run after others on
 the same fixtures (`prelude`), where the file's module-scoped fixture
 carries state from one case to the next; and the port's copy of the
 source may take (text, replacement) edits (`port_subs`), for the flags a
@@ -65,6 +72,8 @@ import random
 import re
 import secrets
 import sys
+import textwrap
+import threading
 import types
 
 import numpy as np
@@ -86,16 +95,23 @@ BIG = 4096
 
 
 class Recorder:
-    """The records of one run, and the masks of its directory."""
+    """The records of one run, and the masks of its directory; an
+    assert on a thread other than the case's own goes into the set
+    `thread_records`."""
 
     def __init__(self):
         self.records: list = []
+        self.thread_records: set = set()
+        self.owner = None
         self.roots: list[str] = []
         self.unrecorded: frozenset = frozenset()
+        self.subs: tuple = ()
 
     def text(self, s: str) -> str:
         for root in self.roots:
             s = s.replace(root, "<tmp>")
+        for old, new in self.subs:
+            s = s.replace(old, new)
         s = s.replace("seaweedfs_tpu_torch", "<pkg>").replace(
             "seaweedfs_tpu", "<pkg>")
         s = _HOSTPORT.sub("<host:port>", s)
@@ -151,22 +167,27 @@ class Recorder:
             return ("str", len(s), hashlib.sha256(s.encode()).hexdigest())
         return s
 
+    def _add(self, record) -> None:
+        if self.owner is None or threading.get_ident() == self.owner:
+            self.records.append(record)
+        else:
+            self.thread_records.add(repr(record))
+
     def compare(self, op: str, a, b, src: str = "") -> bool:
         ok = _CMP[op](a, b)
         if src in self.unrecorded:
-            self.records.append(("unrecorded", src, bool(ok)))
+            self._add(("unrecorded", src, bool(ok)))
         elif op in ("Eq", "NotEq"):
-            self.records.append((op, self.norm(a), self.norm(b)))
+            self._add((op, self.norm(a), self.norm(b)))
         elif op in ("In", "NotIn"):
-            self.records.append((op, self.norm(a), bool(ok)))
+            self._add((op, self.norm(a), bool(ok)))
         else:
-            self.records.append((op, bool(ok)))
+            self._add((op, bool(ok)))
         return ok
 
     def truth(self, v, src: str = "") -> bool:
-        self.records.append(("unrecorded", src, bool(v))
-                            if src in self.unrecorded
-                            else ("truth", bool(v)))
+        self._add(("unrecorded", src, bool(v)) if src in self.unrecorded
+                  else ("truth", bool(v)))
         return v
 
 
@@ -306,6 +327,15 @@ class _Rewrite(ast.NodeTransformer):
         self.generic_visit(node)
         return node
 
+    def visit_Import(self, node):
+        # `import os`, at any depth: the twin's `os` (seeded urandom).
+        rest = [a for a in node.names if (a.name, a.asname) != ("os", None)]
+        if len(rest) == len(node.names):
+            return node
+        out = [ast.Assign([ast.Name("os", ast.Store())],
+                          ast.Name("__twin_os__", ast.Load()))]
+        return out + ([ast.Import(rest)] if rest else [])
+
     def visit_ImportFrom(self, node):
         if node.module and node.module.startswith("test_"):
             return [ast.Assign(
@@ -341,14 +371,13 @@ def load(name: str, pkg: str, port_subs: tuple = ()) -> types.ModuleType:
                         __twin_fixture__=_fixture_marker,
                         __twin_parametrize__=_parametrize_marker,
                         __twin_skipif__=_skipif_marker,
+                        __twin_os__=_Os(),
                         __twin_mod__=lambda n: load(n, pkg))
     sys.modules[mod.__name__] = mod
     _MODULES[key] = mod
     exec(compile(tree, mod.__file__, "exec"), mod.__dict__)
     if "pytest" in mod.__dict__:
         mod.pytest = _Pytest(mod.__twin_rec__)
-    if mod.__dict__.get("os") is os:
-        mod.os = _Os()
     return mod
 
 
@@ -408,16 +437,22 @@ class TwinFile:
     package.  Both packages must still pass such an assert; only its
     outcome is compared, not what it compared.  The entry "raises"
     does the same for the case's `pytest.raises` blocks: that each
-    raised what it expects is compared, not what was raised."""
+    raised what it expects is compared, not what was raised.
+    `record_subs` are (port's text, reference's text) pairs applied to
+    the strings the port's run records, for the names `port_subs`
+    mapped: the records then compare as if the names were the
+    reference's."""
 
     def __init__(self, name: str, clocked: tuple = (), prelude=None,
-                 port_subs: tuple = (), unrecorded=None):
+                 port_subs: tuple = (), unrecorded=None,
+                 record_subs: tuple = ()):
         self.name = name.removesuffix(".py")
         self.clocked = clocked
         self.prelude = dict(prelude or {})
         self.unrecorded = {c: frozenset(a) for c, a in
                            (unrecorded or {}).items()}
         self.port_subs = tuple(port_subs)
+        self.record_subs = tuple(record_subs)
         self.ref = load(self.name, PACKAGES[0])
         load(self.name, PORT, self.port_subs)
         self.cases: dict[str, Case] = {}
@@ -472,8 +507,9 @@ class TwinFile:
             out.append(_run_one(load(self.name, pkg), case, pkg, root,
                                 self.clocked, before,
                                 self.unrecorded.get(case_id, frozenset()),
-                                seed))
-        ref, port = out
+                                seed, self.record_subs if pkg == PORT
+                                else ()))
+        (ref, ref_threads), (port, port_threads) = out
         named = self.unrecorded.get(case_id, frozenset())
         hit = {r[1] for r in ref if r[0] == "unrecorded"}
         assert named <= hit, f"{case_id}: no assert reads {named - hit}"
@@ -481,7 +517,12 @@ class TwinFile:
             assert a == b, (f"assert #{i} of {case_id} records differently:"
                             f"\nJAX package: {a!r}\nport:        {b!r}")
         assert len(ref) == len(port), (len(ref), len(port))
-        assert ref, f"{case_id} recorded no assert"
+        assert ref_threads == port_threads, (
+            f"{case_id}: the asserts of its threads record differently:"
+            f"\nJAX package: {sorted(ref_threads)}"
+            f"\nport:        {sorted(port_threads)}")
+        assert ref or ref_threads or not _asserts(fn), \
+            f"{case_id} recorded no assert"
         return port
 
 
@@ -539,12 +580,42 @@ def _seeded_token_hex(nbytes: int = 32) -> str:
     return random.getrandbits(8 * nbytes).to_bytes(nbytes, "big").hex()
 
 
+def _asserts(fn) -> bool:
+    """Whether the test function holds an assert or a `raises` block
+    (a case without one passes by not raising)."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    return any(isinstance(n, ast.Assert) or (
+        isinstance(n, ast.Attribute) and n.attr == "raises")
+        for n in ast.walk(tree))
+
+
+class _SeededOs:
+    """A module's `os` whose `urandom` draws from a seeded stream of its
+    own (any thread)."""
+
+    def __init__(self, seed: int):
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+
+    def urandom(self, n: int) -> bytes:
+        with self._lock:
+            return self._rng.getrandbits(8 * n).to_bytes(n, "big") \
+                if n else b""
+
+    def __getattr__(self, name):
+        return getattr(os, name)
+
+
 def _run_one(mod, case: Case, pkg: str, root, clocked=(),
-             before=(), unrecorded=frozenset(), seed: int = 0) -> list:
+             before=(), unrecorded=frozenset(), seed: int = 0,
+             record_subs: tuple = ()) -> list:
     rec = mod.__twin_rec__
     rec.records = []
     rec.roots = [str(root)]
     rec.unrecorded = unrecorded
+    rec.subs = record_subs
+    rec.thread_records = set()
+    rec.owner = threading.get_ident()
     # Twin modules imported by this one record into the same run.
     for (name, p), m in _MODULES.items():
         if p == pkg:
@@ -566,6 +637,9 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=(),
     # `random` instead, alike in both packages.
     mp.setattr(secrets, "token_hex", _seeded_token_hex)
     seed_placement(mp, pkg, seed)
+    # Trace and span ids come from a seeded stream of their own.
+    tracer = __import__(f"{pkg}.trace.tracer", fromlist=["os"])
+    mp.setattr(tracer, "os", _SeededOs(seed))
     clock = Clock(EPOCH_S)
     for name in clocked:
         mp.setattr(sys.modules.get(f"{pkg}.{name}")
@@ -621,7 +695,8 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=(),
         for fin in reversed(finalizers):
             fin()
         mp.undo()
-    return rec.records
+        rec.owner = None
+    return rec.records, rec.thread_records
 
 
 def _param_axis(fn, names: tuple):

@@ -29,6 +29,13 @@ in either package, but in the reference it ends that holder's pulse
 thread: the master sweeps a live node and its shards vanish from every
 lookup.  The port's pulse logs the failure and beats again on the next
 tick.
+
+The same lock hold at an HA master's first device set-up (where
+`/cluster/device` brings up torch, a card's context and the probed
+peaks; 1.8-2.4 s on a card's host), in masters without `-repair`, gives
+the same 404 in the reference at the leader's first `/cluster/device`.
+The port's HA master sets its device stack up at start, before it
+serves.
 """
 
 from __future__ import annotations
@@ -77,6 +84,28 @@ cr.make_mesh = make_mesh
 runpy.run_module(pkg, run_name="__main__", alter_sys=True)
 """
 
+# A master process whose first device set-up (roofline.probe_peaks, where
+# /cluster/device and /debug/device bring up torch, a card's context and
+# the peaks) holds the interpreter lock for `hold` seconds, as they do on
+# a card's host (1.8-2.4 s there).
+LAUNCH_PEAKS = """\
+import ctypes, runpy, sys
+pkg, hold = sys.argv.pop(1), float(sys.argv.pop(1))
+if pkg != "seaweedfs_tpu":
+    for name in ("jax", "jaxlib", "seaweedfs_tpu"):
+        sys.modules[name] = None
+import importlib
+rl = importlib.import_module(pkg + ".stats.roofline")
+real, held = rl.probe_peaks, []
+def probe_peaks(*a, **k):
+    if not held:
+        held.append(1)
+        ctypes.PyDLL(None).usleep(int(hold * 1e6))
+    return real(*a, **k)
+rl.probe_peaks = probe_peaks
+runpy.run_module(pkg, run_name="__main__", alter_sys=True)
+"""
+
 
 def wait_for(pred, what: str, timeout: float = DEADLINE):
     deadline = time.monotonic() + timeout
@@ -93,7 +122,8 @@ class HaCluster:
     """Three `-repair` masters as processes of `pkg`, four volume
     servers of `pkg` in this process."""
 
-    def __init__(self, pkg: str, root, hold: float):
+    def __init__(self, pkg: str, root, hold: float, repair: bool = True,
+                 launch: str = LAUNCH):
         self.pkg = pkg
         self.rpc = mod(pkg, "cluster.rpc")
         ports = [self.rpc.free_port() for _ in range(3)]
@@ -106,10 +136,11 @@ class HaCluster:
             log = open(root / f"m{i}.log", "w")
             self.logs.append(log)
             self.procs.append(subprocess.Popen(
-                [sys.executable, "-c", LAUNCH, pkg, str(hold), "master",
+                [sys.executable, "-c", launch, pkg, str(hold), "master",
                  f"-port={port}", f"-mdir={root}/m{i}", f"-peers={peers}",
                  "-volumeSizeLimitMB=8", "-defaultReplication=000",
-                 f"-pulseSeconds={PULSE}", "-repair", "-repair.delay=0.5"],
+                 f"-pulseSeconds={PULSE}"]
+                + (["-repair", "-repair.delay=0.5"] if repair else []),
                 cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
         VolumeServer = mod(pkg, "cluster.volume_server").VolumeServer
         self.servers = {}
@@ -159,6 +190,42 @@ def shard_holders(doc: dict) -> dict:
             for s, locs in doc.get("ecShards", {}).items()}
 
 
+def encode_one(cl: HaCluster, pkg: str) -> tuple[str, int, dict]:
+    """Through the raft leader: one volume of 24 needles, `ec.encode` of
+    it, and its 14 shards at the leader; (leader, vid, shard holders)."""
+    leader = wait_for(cl.leader, "a raft leader")
+    wait_for(lambda: len(cl.rpc.call_status(
+        leader + "/cluster/healthz", timeout=2.0)[1]["nodes"]) == 4,
+        "four volume servers at the leader")
+    cl.rpc.call(f"{leader}/vol/grow?count=1&collection=ha", "POST")
+    client = mod(pkg, "cluster.client").WeedClient(list(cl.murls))
+    rng = np.random.default_rng(11)
+    fids = {}
+    for i in range(24):
+        data = rng.integers(0, 256, 2000 + 997 * i,
+                            dtype=np.uint8).tobytes()
+        fids[client.upload_data(data, collection="ha")] = data
+    vids = {int(f.split(",")[0]) for f in fids}
+    assert len(vids) == 1, vids
+    vid = vids.pop()
+    shell = mod(pkg, "shell")
+    env = shell.CommandEnv(leader, **device_kw(pkg))
+    try:
+        shell.run_command(env, "lock")
+        out = shell.run_command(env, f"ec.encode -volumeId {vid}")
+    finally:
+        env.close()
+    assert f"volume {vid} -> ec shards" in out, out
+
+    def encoded():
+        status, doc = cl.lookup(leader, vid)
+        holders = shard_holders(doc) if status == 200 else {}
+        return holders if len(holders) == 14 and all(
+            holders.values()) else None
+    holders = wait_for(encoded, "14 shards at the leader")
+    return leader, vid, holders
+
+
 def scenario(pkg: str, root, lead: str) -> dict:
     """The cluster through ec.encode and a holder's stop, with `lead`'s
     window widened ("setup": the rebuild set-up's lock hold, "beat": a
@@ -167,36 +234,7 @@ def scenario(pkg: str, root, lead: str) -> dict:
     lookup)."""
     cl = HaCluster(pkg, root, HOLD if lead == "setup" else 0.0)
     try:
-        leader = wait_for(cl.leader, "a raft leader")
-        wait_for(lambda: len(cl.rpc.call_status(
-            leader + "/cluster/healthz", timeout=2.0)[1]["nodes"]) == 4,
-            "four volume servers at the leader")
-        cl.rpc.call(f"{leader}/vol/grow?count=1&collection=ha", "POST")
-        client = mod(pkg, "cluster.client").WeedClient(list(cl.murls))
-        rng = np.random.default_rng(11)
-        fids = {}
-        for i in range(24):
-            data = rng.integers(0, 256, 2000 + 997 * i,
-                                dtype=np.uint8).tobytes()
-            fids[client.upload_data(data, collection="ha")] = data
-        vids = {int(f.split(",")[0]) for f in fids}
-        assert len(vids) == 1, vids
-        vid = vids.pop()
-        shell = mod(pkg, "shell")
-        env = shell.CommandEnv(leader, **device_kw(pkg))
-        try:
-            shell.run_command(env, "lock")
-            out = shell.run_command(env, f"ec.encode -volumeId {vid}")
-        finally:
-            env.close()
-        assert f"volume {vid} -> ec shards" in out, out
-
-        def encoded():
-            status, doc = cl.lookup(leader, vid)
-            holders = shard_holders(doc) if status == 200 else {}
-            return holders if len(holders) == 14 and all(
-                holders.values()) else None
-        holders = wait_for(encoded, "14 shards at the leader")
+        leader, vid, holders = encode_one(cl, pkg)
         counts = {}
         for sid, urls in holders.items():
             for u in urls:
@@ -300,3 +338,59 @@ def test_pulse_survives_a_failed_beat_in_the_port_only(pkg, tmp_path):
     else:
         assert not out["pulse_threads_alive"] and out["swept_live"] \
             and out["live_holder_vanished"], out
+
+
+def device_scenario(pkg: str, root) -> dict:
+    """Three masters without `-repair` whose first device set-up holds
+    the interpreter lock for HOLD, through ec.encode; then one GET
+    /cluster/device on the leader, the lookups of the volume polled
+    through every master from just before it until HOLD + 3 pulses
+    after."""
+    cl = HaCluster(pkg, root, HOLD, repair=False, launch=LAUNCH_PEAKS)
+    try:
+        leader, vid, _holders = encode_one(cl, pkg)
+        terms0 = cl.terms()
+        answers: list = []
+        done = threading.Event()
+
+        def poll(url):
+            while not done.is_set():
+                t0 = time.monotonic()
+                try:
+                    status, doc = cl.lookup(url, vid)
+                except Exception as e:  # noqa: BLE001 — a timeout
+                    status, doc = type(e).__name__, {}
+                if status != 200:
+                    answers.append((url, status,
+                                    str(doc.get("error", ""))[:80]))
+                done.wait(max(0.0, POLL - (time.monotonic() - t0)))
+        pollers = [threading.Thread(target=poll, args=(u,), daemon=True)
+                   for u in cl.murls]
+        for t in pollers:
+            t.start()
+        t0 = time.monotonic()
+        doc = cl.rpc.call(f"{leader}/cluster/device", timeout=DEADLINE)
+        took = time.monotonic() - t0
+        done.wait(HOLD + 3 * PULSE)
+        done.set()
+        for t in pollers:
+            t.join(10)
+        wait_for(cl.leader, "a raft leader")
+        return {"peaks": "peaks" in doc, "device_s": round(took, 2),
+                "not_200": sorted(answers),
+                "not_found": [a for a in answers if a[1] == 404],
+                "term_moved": cl.terms() != terms0}
+    finally:
+        cl.stop()
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_no_404_across_an_ha_master_device_setup_stall_in_the_port_only(
+        pkg, tmp_path):
+    out = device_scenario(pkg, tmp_path)
+    assert out["peaks"], out
+    if pkg == PORT:
+        assert out["not_200"] == [] and not out["term_moved"] \
+            and out["device_s"] < HOLD, out
+    else:
+        assert out["term_moved"] and out["not_found"], out

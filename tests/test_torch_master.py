@@ -46,7 +46,7 @@ DEVICE_VIEW = {
          "achieved_p50": 0.47, "achieved_p95": 0.5}],
     "occupancy": {"latest": {}, "collapsed": {}, "streaks": {},
                   "any_collapsed": False}}
-PEAKS = {"version": 1, "backend": "cuda",
+PEAKS = {"version": 2, "backend": "cuda",
          "device_kind": "NVIDIA H100 80GB HBM3",
          "matmul_flops": {"int8": 9.57e14, "bf16": 7.85e14},
          "membw_bps": 2.86e12, "h2d_bps": 5.24e10, "d2h_bps": 5.52e10,

@@ -60,7 +60,7 @@ torch.set_num_threads(1)
 LARGE, SMALL = 10000, 100  # the Go test's shrunken block sizes
 CHUNK = 1000               # ten small rows per coder call
 
-FAKE_PEAKS = {"version": 1, "backend": "fake", "device_kind": "fake",
+FAKE_PEAKS = {"version": 2, "backend": "fake", "device_kind": "fake",
               "matmul_flops": {"int8": 1e9, "bf16": 1e9, "f32": 1e9},
               "membw_bps": 1e8, "h2d_bps": 1e9, "d2h_bps": 1e9,
               "host_stream_bps": 1e9, "probe_seconds": 0.0}
