@@ -3,9 +3,11 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--dat-mib 1024] [--batch-div 1]
-                          [--live-mib 256] [--ha-mib 1024]
-                          [--filer-mib 512] [--gateway-mib 1024]
+    python3 chip_smoke.py [--seed 0] [--main-mib 30000] [--dat-mib 1024]
+                          [--batch-div 1] [--live-mib 256] [--ha-mib 512]
+                          [--filer-mib 256] [--gateway-mib 1024]
+
+`--main-only` runs phases 1, 2 and 4 alone (phase 4 at --main-mib).
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -30,19 +32,35 @@ Phases; any failure raises and the script exits non-zero:
              volume (not a multiple of 256), the LRC local repair 5->1
              (K1 at 1 MiB, K2 at a whole 26 MiB LRC shard), and a
              rebuild-sized (2, 10, 26 MiB) decode;
-4. main    — `weed shell ec.encode` on a volume at its size limit, cut
-             from 30000 MB to --dat-mib: write a seeded .dat/.idx,
-             .ecx, write_ec_files (fused CRC, K2), delete shards
-             1/3/9/12 and rebuild_ec_files (K1), delete 4 shards again
-             and EcVolume.read_needle on 300 seeded needles (K1);
-             checks .ecc against the shard bytes, rebuilt shards against
-             the originals, every read against its payload, and that
-             both kernels launched;
+4. main    — `weed shell ec.encode` on a volume at upstream's
+             `-volumeSizeLimitMB=30000` (--main-mib): a seeded .dat/.idx
+             (payloads sliced from one 1 GiB blob) and .ecx, write_ec_files
+             (fused CRC, K2: one launch per 4 MiB of the two 1 GiB
+             large-block rows and per four of the 952 small rows, checked
+             against the layout computed apart from the encoder); the
+             .ecc against all 14 shards' bytes; the first and last 4 MiB
+             of every large-block row and of the small rows against the
+             .dat at the Go layout's offsets and against coder_native's
+             parity; shards 1/3/9/12 deleted and rebuild_ec_files (K1,
+             one per 4 MiB), the rebuilt shards held to the originals'
+             block CRCs; the same loss rebuilt again by
+             batch_rebuild_files at its 256 MiB budget (K2 decode in
+             column steps of (1, 10, 18 MiB)), byte-equal to
+             rebuild_ec_files's, each step within the budget, the card's
+             peak memory under 2 GiB and the RSS growth under 4 GiB;
+             then shards 0/4/8/13 deleted and EcVolume.read_needle on 300
+             seeded needles plus every needle across a 1 GiB block
+             boundary (the last of them into the small rows), each equal
+             to its payload, K1 launched once per lost interval read.
+             The 14 shards are kept in memory (memfd), the .dat and the
+             rebuilt shards on disk: the GPU host caps how far a run's
+             disk grows (DISK_CAP);
 5. timings — each kernel, its plain version and a torch.matmul yardstick
              at the main path's shapes: K1 at (10 -> 4, 4 MiB) and
              (10 -> 1, 1 MiB), K2 at (10 -> 4, 4 MiB); at the batched
-             path's (4, 10, 4 MiB) encode step and its largest rebuild
-             step, and at LRC's 5 -> 1 (K1 1 MiB, K2 one LRC shard).
+             path's (4, 10, 4 MiB) encode step, its largest rebuild step
+             and phase 4's (1, 10, 18 MiB) column step, and at LRC's
+             5 -> 1 (K1 1 MiB, K2 one LRC shard).
              CUDA events around many launches that the host has all
              issued before the card reaches the start event (a
              torch.cuda._sleep fills the queue), inputs rotated through
@@ -363,6 +381,21 @@ SLEEP_CYCLES_PER_S = 2e9
 
 MIB = 1024 * 1024
 KERNEL_N = 4 * MIB  # DEFAULT_CHUNK: one coder call on the main path
+LARGE_BLOCK = 1024 * MIB  # the Go layout's blocks
+SMALL_BLOCK = MIB
+# Phase 4's volume: upstream's `weed master -volumeSizeLimitMB=30000`
+# (--main-mib; 12 000 MiB is the least that still has a large-block row
+# and its boundary into the small rows).
+MAIN_MIB = 30000
+DISK_SLACK = 1 << 30  # .idx, .ecx and the rest beside the volume
+MEM_SLACK = 8 << 30  # this process, its pinned staging and the cache
+# The GPU host this script is sized for lets a run's disk grow by at most
+# 45 GiB (freed blocks are reused, so what counts is the most held at once).
+DISK_CAP = 45 << 30
+MAIN_BATCH_BYTES = 1 << 28  # batch_rebuild_files's default budget
+MAIN_DEVICE_PEAK_MAX = 2 << 30
+MAIN_RSS_GROWTH_MAX = 4 << 30
+VOLUME_BLOB = 1024 * MIB  # write_volume's payloads, at most
 REBUILD_LOST = (1, 3, 9, 12)
 READ_LOST = (0, 4, 8, 13)
 READS = 300
@@ -474,7 +507,7 @@ HA_RACKS = 2
 HA_STANDBY_NODES = 2
 HA_MAX_VOLUMES = 7
 HA_REPLICATION = "000"
-HA_LIMIT_MB = 1024  # --ha-mib
+HA_LIMIT_MB = 512  # --ha-mib (1024 before phase 4 grew to 30000 MiB)
 HA_COLLECTION = "ha"
 HA_FILLER = "hafill"  # empty volumes in every other slot during the write
 HA_BACKUP_PERCENT = 20  # the full `weed backup` starts as it passes this
@@ -496,7 +529,8 @@ FILER_NODES = 6
 FILER_RACKS = 2
 FILER_MAX_VOLUMES = 7
 FILER_REPLICATION = "000"
-FILER_LIMIT_MB = 512  # --filer-mib (1024 before phase 13 joined)
+FILER_LIMIT_MB = 256  # --filer-mib (1024 before phase 13 joined, 512
+# before phase 4 grew to 30000 MiB)
 FILER_COLLECTION = "fs12"
 FILER_PREGROW = 2  # volumes the large files fill
 FILER_FULL_PERCENT = 95
@@ -627,12 +661,17 @@ def max_abs_err(torch, got, want) -> int:
 
 def write_volume(base: str, dat_bytes: int, seed: int):
     """Seeded .dat/.idx of needles log-uniform in 1 KiB..4 MiB, filled
-    to dat_bytes.  Returns {needle id: payload memoryview}."""
+    to dat_bytes.  The payloads are consecutive slices of one random blob
+    of at most VOLUME_BLOB bytes, from its start again where the next
+    would run past its end: a volume of any size holds only the blob in
+    memory, and one no larger than the blob has the bytes it had when
+    the blob was as large as the volume.  Returns {needle id: payload
+    memoryview}."""
     from seaweedfs_tpu_torch.core.needle import Needle, get_actual_size
     from seaweedfs_tpu_torch.storage.dat_writer import DatWriter
 
     rng = np.random.default_rng(seed)
-    blob = rng.bytes(dat_bytes)
+    blob = rng.bytes(min(dat_bytes, VOLUME_BLOB))
     view = memoryview(blob)
     payloads = {}
     pos = 0
@@ -641,9 +680,11 @@ def write_volume(base: str, dat_bytes: int, seed: int):
         while True:
             size = int(math.exp(rng.uniform(math.log(1024), math.log(4 * MIB))))
             room = dat_bytes - w.size - get_actual_size(0, w.version) - 16
-            size = min(size, room, len(blob) - pos)
+            size = min(size, room)
             if size < 1024:
                 break
+            if pos + size > len(blob):
+                pos = 0
             nid += 1
             data = view[pos:pos + size]
             pos += size
@@ -1109,13 +1150,244 @@ def phase_probe(torch, dev) -> dict:
             "probe_seconds": doc["probe_seconds"]}
 
 
+def ec_layout(dat_size: int) -> dict:
+    """The Go encoder's layout of a .dat of dat_size bytes, computed
+    without the encoder: large-block rows while more than one full row
+    remains (encodeDatFile's strict >), then 1 MiB small-block rows;
+    each shard's size, and write_ec_files's coder calls (one per 4 MiB
+    of a large block, one per four small rows)."""
+    large_rows, rest = 0, dat_size
+    while rest > LARGE_BLOCK * 10:
+        large_rows += 1
+        rest -= LARGE_BLOCK * 10
+    small_rows = -(-rest // (SMALL_BLOCK * 10))
+    return {"large_rows": large_rows, "small_rows": small_rows,
+            "shard_bytes": large_rows * LARGE_BLOCK + small_rows * SMALL_BLOCK,
+            "encode_calls": large_rows * (LARGE_BLOCK // KERNEL_N)
+            + -(-small_rows // (KERNEL_N // SMALL_BLOCK))}
+
+
+def check_stripes(base: str, dat_size: int, layout: dict) -> list:
+    """The first and last 4 MiB of every large-block row and of the
+    small-block region: each data shard's bytes equal the .dat at the Go
+    layout's offsets (a small row's tail past the .dat's end is zeros),
+    and the parity shards equal the host AVX2 coder's (ops/coder_native)
+    parity of those data rows.  Returns the shard offsets checked."""
+    from seaweedfs_tpu_torch.ec import to_ext
+    from seaweedfs_tpu_torch.ops.coder_native import NativeCoder
+    coder = NativeCoder(10, 4)
+    large_end = layout["large_rows"] * LARGE_BLOCK
+    windows = []  # (shard offset, width)
+    for r in range(layout["large_rows"]):
+        windows += [(r * LARGE_BLOCK, KERNEL_N),
+                    ((r + 1) * LARGE_BLOCK - KERNEL_N, KERNEL_N)]
+    width = min(KERNEL_N, layout["shard_bytes"] - large_end)
+    if width:
+        windows += [(large_end, width),
+                    (layout["shard_bytes"] - width, width)]
+
+    def dat_offset(shard_off: int, sid: int) -> int:
+        if shard_off < large_end:
+            row, inner = divmod(shard_off, LARGE_BLOCK)
+            return (row * 10 + sid) * LARGE_BLOCK + inner
+        row, inner = divmod(shard_off - large_end, SMALL_BLOCK)
+        return large_end * 10 + (row * 10 + sid) * SMALL_BLOCK + inner
+
+    files = {sid: open(base + to_ext(sid), "rb") for sid in range(14)}
+    try:
+        with open(base + ".dat", "rb") as dat:
+            for off, width in windows:
+                rows = np.zeros((14, width), np.uint8)
+                for sid in range(14):
+                    raw = os.pread(files[sid].fileno(), width, off)
+                    check(len(raw) == width, f"shard {sid} short at {off}")
+                    rows[sid] = np.frombuffer(raw, np.uint8)
+                for sid in range(10):
+                    # A window never crosses a large block, but one in the
+                    # small rows spans up to 4 of them.
+                    for k in range(0, width, SMALL_BLOCK):
+                        raw = os.pread(dat.fileno(), SMALL_BLOCK,
+                                       dat_offset(off + k, sid))
+                        want = np.zeros(SMALL_BLOCK, np.uint8)
+                        want[:len(raw)] = np.frombuffer(raw, np.uint8)
+                        check(np.array_equal(rows[sid, k:k + SMALL_BLOCK],
+                                             want),
+                              f"shard {sid} at {off + k} is not the .dat "
+                              f"at {dat_offset(off + k, sid)}")
+                check(np.array_equal(coder.encode(rows[:10]), rows[10:]),
+                      f"parity at shard offset {off} differs from "
+                      "coder_native's")
+    finally:
+        for f in files.values():
+            f.close()
+    return windows
+
+
+def block_crcs(paths: dict) -> dict:
+    """file_block_crcs of each path, {key: crcs}, 8 files at a time (the
+    native CRC32-C releases the interpreter lock)."""
+    import concurrent.futures
+    from seaweedfs_tpu_torch.ec.integrity import file_block_crcs
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        futs = {k: pool.submit(file_block_crcs, p) for k, p in paths.items()}
+        return {k: f.result() for k, f in futs.items()}
+
+
+def same_bytes(pairs: list) -> None:
+    """Each (a, b) pair of files holds the same bytes, read 64 MiB at a
+    time, 4 pairs at a time."""
+    import concurrent.futures
+
+    def one(a: str, b: str) -> None:
+        check(os.path.getsize(a) == os.path.getsize(b),
+              f"{a} and {b} differ in size")
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            off = 0
+            while True:
+                x = os.pread(fa.fileno(), 64 * MIB, off)
+                if not x:
+                    return
+                check(x == os.pread(fb.fileno(), 64 * MIB, off),
+                      f"{a} and {b} differ in [{off}, {off + len(x)})")
+                off += len(x)
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        for f in [pool.submit(one, a, b) for a, b in pairs]:
+            f.result()
+
+
+class RamFiles:
+    """Files kept in this process's memory (memfd_create), each reached
+    through a symlink at its path, so every open, stat and pread of the
+    path sees it.  The GPU host lets a run's disk grow by at most
+    DISK_CAP; phase 4's volume and its 14 shards together would pass
+    that at the north-star size."""
+
+    def __init__(self):
+        self.fds: dict = {}
+
+    def make(self, path: str) -> None:
+        fd = os.memfd_create(os.path.basename(path))
+        os.symlink(f"/proc/self/fd/{fd}", path)
+        self.fds[path] = fd
+
+    def drop(self, path: str) -> None:
+        os.remove(path)
+        os.close(self.fds.pop(path))
+
+    def close(self) -> None:
+        for fd in self.fds.values():
+            os.close(fd)
+        self.fds.clear()
+
+
+def mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("chip_smoke: no MemAvailable in /proc/meminfo")
+
+
+class PeakRss:
+    """This process's VmRSS before a `with` block and its highest,
+    sampled every 20 ms, while the block runs."""
+
+    def __enter__(self):
+        self.before = self.peak = rss_mib(os.getpid())
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, rss_mib(os.getpid()))
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_mib(os.getpid()))
+
+
+def needle_spans(base: str) -> dict:
+    """{needle id: (.dat offset, record bytes)} from the .idx."""
+    from seaweedfs_tpu_torch.core.needle import (CURRENT_VERSION,
+                                                 get_actual_size)
+    from seaweedfs_tpu_torch.core.types import NEEDLE_PADDING_SIZE
+    idx = np.fromfile(base + ".idx", dtype=[("key", ">u8"), ("off", ">u4"),
+                                            ("size", ">u4")])
+    return {int(k): (int(o) * NEEDLE_PADDING_SIZE,
+                     get_actual_size(int(s), CURRENT_VERSION))
+            for k, o, s in zip(idx["key"], idx["off"], idx["size"])}
+
+
+def boundary_needles(spans: dict, layout: dict) -> dict:
+    """The needles whose record crosses a 1 GiB large-block boundary of
+    the .dat, {needle id: boundary}, the last large-row boundary being
+    the transition into the small rows."""
+    bounds = [k * LARGE_BLOCK for k in range(1, layout["large_rows"] * 10 + 1)]
+    out = {}
+    for nid, (off, size) in spans.items():
+        for b in bounds:
+            if off < b < off + size:
+                out[nid] = b
+    return out
+
+
+def read_kind(ivs) -> str:
+    """Where a needle's record lies, from its shard intervals: "large"
+    (one large block), "small" (small rows only), "large_boundary" (two
+    large blocks) or "large_to_small" (the last large block and the
+    first small row)."""
+    kinds = {iv.is_large_block for iv in ivs}
+    if kinds == {True, False}:
+        return "large_to_small"
+    if kinds == {False}:
+        return "small"
+    return "large" if len(ivs) == 1 else "large_boundary"
+
+
+def main_batch_rebuild(torch, base: str) -> dict:
+    """batch_rebuild_files of one volume at the default budget, with the
+    card's peak memory and this process's RSS growth during the call and
+    every device step's staged input plus output."""
+    from seaweedfs_tpu_torch.parallel import cluster_rebuild
+    steps: list = []
+    observe = cluster_rebuild.observe_batch_stage
+
+    def record(stages, stage, seconds, nbytes):
+        if stage == "batch_rebuild_device":
+            steps.append(nbytes)
+        observe(stages, stage, seconds, nbytes)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cluster_rebuild.observe_batch_stage = record
+    try:
+        with PeakRss() as rss:
+            t0 = time.perf_counter()
+            lines = cluster_rebuild.batch_rebuild_files(
+                [base], max_batch_bytes=MAIN_BATCH_BYTES)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cluster_rebuild.observe_batch_stage = observe
+    rows = 10 + len(REBUILD_LOST)
+    staged = [n // 10 * rows for n in steps]
+    return {"wall_s": wall, "lines": lines, "steps": len(steps),
+            "max_staged_bytes": max(staged),
+            "device_peak_bytes": torch.cuda.max_memory_allocated(),
+            "rss_before_mib": rss.before,
+            "rss_growth_mib": rss.peak - rss.before}
+
+
 def phase_main_path(torch, dev, args) -> dict:
     from seaweedfs_tpu_torch.ec import to_ext
     from seaweedfs_tpu_torch.ec.encoder import (rebuild_ec_files,
                                                 write_ec_files,
                                                 write_sorted_file_from_idx)
-    from seaweedfs_tpu_torch.ec.integrity import (ShardChecksums,
-                                                  file_block_crcs)
+    from seaweedfs_tpu_torch.ec.integrity import ShardChecksums
     from seaweedfs_tpu_torch.ec.volume import EcVolume
     from seaweedfs_tpu_torch.ops.coder_cuda import (apply_bitmatrix,
                                                     apply_bitmatrix_crc)
@@ -1123,14 +1395,35 @@ def phase_main_path(torch, dev, args) -> dict:
     work = os.path.join(REPO, "_smoke_work")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
+    dat_bytes = args.main_mib * MIB
+    shard_max = ec_layout(dat_bytes)["shard_bytes"]
+    # The 14 shards the encode writes are kept in memory (RamFiles); on
+    # the disk are the .dat until the encode's checks are done, then the
+    # two rebuilds' 4 + 4 shards.
+    need = {"memory": 14 * shard_max + MEM_SLACK,
+            "disk": max(dat_bytes, 8 * shard_max) + DISK_SLACK}
+    have = {"memory": mem_available(),
+            "disk": min(shutil.disk_usage(work).free, DISK_CAP)}
+    for what in need:
+        check(have[what] >= need[what],
+              f"phase 4: a {args.main_mib} MiB volume needs {need[what]} "
+              f"bytes of {what}, {have[what]} are free: "
+              f"{need[what] - have[what]} bytes short (--main-mib sets the "
+              "size)")
+    walls: dict = {}
+    ram = RamFiles()
     try:
         base = os.path.join(work, "1")
+        for sid in range(14):
+            ram.make(base + to_ext(sid))
         t0 = time.perf_counter()
-        payloads = write_volume(base, args.dat_mib * MIB, args.seed)
+        payloads = write_volume(base, dat_bytes, args.seed)
         write_sorted_file_from_idx(base)
         dat_size = os.path.getsize(base + ".dat")
-        log(f"wrote {len(payloads)} needles, .dat {dat_size} bytes "
-            f"in {time.perf_counter() - t0:.1f} s")
+        walls["write"] = time.perf_counter() - t0
+        layout = ec_layout(dat_size)
+        log(f"wrote {len(payloads)} needles, .dat {dat_size} bytes in "
+            f"{walls['write']:.1f} s; layout {layout}; free {have}")
 
         reset_counts()
         obs: dict = {}
@@ -1143,54 +1436,133 @@ def phase_main_path(torch, dev, args) -> dict:
 
         t0 = time.perf_counter()
         write_ec_files(base, device=dev)
-        encode_s = time.perf_counter() - t0
+        walls["encode"] = time.perf_counter() - t0
         close_window("main_encode")
         k2_encode = apply_bitmatrix_crc.launches
+        check(k2_encode == layout["encode_calls"],
+              f"{k2_encode} K2 launches in write_ec_files for "
+              f"{layout['encode_calls']} coder calls of the layout")
         shard_bytes = os.path.getsize(base + to_ext(0))
+        for sid in range(14):
+            check(os.path.getsize(base + to_ext(sid)) == layout["shard_bytes"],
+                  f"shard {sid}: {os.path.getsize(base + to_ext(sid))} bytes, "
+                  f"the layout's {layout['shard_bytes']}")
+        t0 = time.perf_counter()
+        originals = block_crcs({sid: base + to_ext(sid) for sid in range(14)})
         ecc = ShardChecksums.load(base)
         for sid in range(14):
-            check(ecc.get(sid) == file_block_crcs(base + to_ext(sid)),
+            check(ecc.get(sid) == originals[sid],
                   f".ecc of shard {sid} differs from its bytes")
-        log(f"encode {encode_s:.3f} s; .ecc matches all 14 shards")
+        windows = check_stripes(base, dat_size, layout)
+        walls["encode_checks"] = time.perf_counter() - t0
+        os.remove(base + ".dat")
+        log(f"encode {walls['encode']:.3f} s, {k2_encode} K2 launches; .ecc "
+            f"matches all 14 shards; stripes at {len(windows)} offsets equal "
+            f"the .dat and coder_native ({walls['encode_checks']:.1f} s)")
 
-        digests = {sid: sha256_file(base + to_ext(sid)) for sid in REBUILD_LOST}
         for sid in REBUILD_LOST:
-            os.remove(base + to_ext(sid))
+            ram.drop(base + to_ext(sid))
         t0 = time.perf_counter()
         rebuilt = rebuild_ec_files(base, device=dev)
-        rebuild_s = time.perf_counter() - t0
+        walls["rebuild"] = time.perf_counter() - t0
         close_window("main_rebuild")
         k1_rebuild = apply_bitmatrix.launches
         check(rebuilt == list(REBUILD_LOST), f"rebuilt {rebuilt}")
+        check(k1_rebuild == -(-shard_bytes // KERNEL_N),
+              f"{k1_rebuild} K1 launches rebuilding {shard_bytes}-byte shards")
+        ecc = ShardChecksums.load(base)
+        now = block_crcs({sid: base + to_ext(sid) for sid in REBUILD_LOST})
+        for sid in REBUILD_LOST:
+            check(now[sid] == originals[sid],
+                  f"rebuilt shard {sid}'s block CRCs differ from the "
+                  "original's")
+            check(ecc.get(sid) == originals[sid],
+                  f".ecc of rebuilt shard {sid} differs from the original's")
+        log(f"rebuild {walls['rebuild']:.3f} s, {k1_rebuild} K1 launches; "
+            f"shards {rebuilt} have the originals' block CRCs")
+
+        # The same loss again, rebuilt by the batched path in column
+        # steps; rebuild_ec_files's shards are kept aside to compare.
+        for sid in REBUILD_LOST:
+            os.replace(base + to_ext(sid), base + to_ext(sid) + ".single")
+        k2_before = apply_bitmatrix_crc.launches
+        batch = main_batch_rebuild(torch, base)
+        close_window("main_batch_rebuild")
+        batch["k2_launches"] = apply_bitmatrix_crc.launches - k2_before
+        check(batch["lines"] == [f"volume {base}: rebuilt shards "
+                                 f"{list(REBUILD_LOST)}"], f"{batch['lines']}")
+        check(batch["k2_launches"] == batch["steps"] > 1,
+              f"{batch['k2_launches']} K2 launches for {batch['steps']} steps")
+        check(batch["max_staged_bytes"] <= MAIN_BATCH_BYTES,
+              f"a batched step staged {batch['max_staged_bytes']} bytes")
+        check(batch["device_peak_bytes"] < MAIN_DEVICE_PEAK_MAX,
+              f"the batched rebuild's device peak "
+              f"{batch['device_peak_bytes']}")
+        check(batch["rss_growth_mib"] * MIB < MAIN_RSS_GROWTH_MAX,
+              f"the batched rebuild grew RSS {batch['rss_growth_mib']} MiB")
+        same_bytes([(base + to_ext(sid), base + to_ext(sid) + ".single")
+                    for sid in REBUILD_LOST])
         ecc = ShardChecksums.load(base)
         for sid in REBUILD_LOST:
-            check(sha256_file(base + to_ext(sid)) == digests[sid],
-                  f"rebuilt shard {sid} differs from the original")
-            check(ecc.get(sid) == file_block_crcs(base + to_ext(sid)),
-                  f".ecc of rebuilt shard {sid} differs from its bytes")
-        log(f"rebuild {rebuild_s:.3f} s; shards {rebuilt} identical")
+            os.remove(base + to_ext(sid) + ".single")
+            check(ecc.get(sid) == originals[sid],
+                  f".ecc of batch-rebuilt shard {sid} differs")
+        walls["batch_rebuild"] = batch.pop("wall_s")
+        batch.pop("lines")
+        log(f"batched rebuild {walls['batch_rebuild']:.3f} s in "
+            f"{batch['steps']} steps, equal to rebuild_ec_files's: {batch}")
 
         for sid in READ_LOST:
-            os.remove(base + to_ext(sid))
+            ram.drop(base + to_ext(sid))
+        crossing = boundary_needles(needle_spans(base), layout)
         rng = np.random.default_rng(args.seed + 2)
         ids = sorted(payloads)
         sample = [ids[i] for i in rng.choice(len(ids), min(READS, len(ids)),
                                              replace=False)]
+        reads = sample + sorted(set(crossing) - set(sample))
         vol = EcVolume(base, device=dev)
         try:
-            lat_degraded, lat_local = read_pass(vol, sample, payloads)
+            vol.version  # shard 0 is lost: its superblock is a K1 launch
+            k1_before = apply_bitmatrix.launches
+            lost_intervals = 0
+            by_kind: dict = {}
+            lat_degraded, lat_local = [], []
+            for nid in reads:
+                _off, _size, ivs = vol.locate_needle(nid)
+                kind = read_kind(ivs)
+                lost_intervals += sum(
+                    iv.to_shard_id_and_offset(LARGE_BLOCK, SMALL_BLOCK)[0]
+                    in READ_LOST for iv in ivs)
+                before = apply_bitmatrix.launches
+                t0 = time.perf_counter()
+                n = vol.read_needle(nid)
+                dt = time.perf_counter() - t0
+                check(n.data == payloads[nid], f"needle {nid} read back wrong")
+                by_kind.setdefault(kind, []).append(dt)
+                (lat_degraded if apply_bitmatrix.launches > before
+                 else lat_local).append(dt)
+            k1_reads = apply_bitmatrix.launches - k1_before
             close_window("main_reads")
+            check(k1_reads == lost_intervals,
+                  f"{k1_reads} K1 launches for {lost_intervals} lost "
+                  "intervals read")
+            check("large_to_small" in by_kind or not layout["large_rows"],
+                  "no read across the large-to-small transition")
             launches = {"rs_bitmatrix": apply_bitmatrix.launches,
                         "rs_bitmatrix_crc": apply_bitmatrix_crc.launches}
             by_instantiation = {
                 "rs_bitmatrix": dict(apply_bitmatrix.variant_launches),
                 "rs_bitmatrix_crc": dict(apply_bitmatrix_crc.variant_launches)}
-            log(f"{len(sample)} reads verified, {len(lat_degraded)} degraded; "
-                f"launches {launches}")
+            log(f"{len(reads)} reads verified ({len(crossing)} across a "
+                f"large-block boundary), {len(lat_degraded)} degraded, "
+                f"{k1_reads} K1 = lost intervals read; by kind "
+                f"{ {k: len(v) for k, v in by_kind.items()} }; launches "
+                f"{launches}")
             for name, count in launches.items():
                 check(count > 0, f"{name} never launched on the main path")
-            # The hooks' cost: the degraded reads again, after the counts
-            # were read and outside the counted windows, in each mode.
+            # The hooks' cost: the seeded sample's degraded reads again,
+            # after the counts were read and outside the counted windows,
+            # in each mode.
             degraded = []
             for nid in sample:
                 before = apply_bitmatrix.launches
@@ -1211,14 +1583,23 @@ def phase_main_path(torch, dev, args) -> dict:
         cost.update(hooks_per_call(torch, dev))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        ram.close()
 
-    return {
-        "dat_bytes": dat_size, "needles": len(payloads),
-        "reduced": f"volume 30000 MB -> {args.dat_mib} MiB",
-        "shard_bytes": shard_bytes,
-        "encode_s": encode_s, "encode_gb_s": dat_size / encode_s / 1e9,
-        "rebuild_s": rebuild_s, "rebuild_gb_s": dat_size / rebuild_s / 1e9,
-        "reads": len(sample), "degraded_reads": len(lat_degraded),
+    out = {
+        "dat_bytes": dat_size, "needles": len(payloads), "layout": layout,
+        "shard_bytes": shard_bytes, "walls_s": walls,
+        "encode_s": walls["encode"],
+        "encode_gb_s": dat_size / walls["encode"] / 1e9,
+        "rebuild_s": walls["rebuild"],
+        "rebuild_gb_s": dat_size / walls["rebuild"] / 1e9,
+        "batch_rebuild": {**batch, "gb_s": dat_size / walls["batch_rebuild"]
+                          / 1e9},
+        "stripes_checked": len(windows),
+        "reads": len(reads), "degraded_reads": len(lat_degraded),
+        "boundary_needles": len(crossing), "lost_intervals": lost_intervals,
+        "reads_by_kind": {k: {"reads": len(v), "p50_ms": pct_ms(v, 50),
+                              "p99_ms": pct_ms(v, 99)}
+                          for k, v in by_kind.items()},
         "degraded_read_p50_ms": pct_ms(lat_degraded, 50),
         "degraded_read_p99_ms": pct_ms(lat_degraded, 99),
         "local_read_p50_ms": pct_ms(lat_local, 50),
@@ -1228,9 +1609,13 @@ def phase_main_path(torch, dev, args) -> dict:
         "launches_by_instantiation": by_instantiation,
         "launches_by_step": {"encode_rs_bitmatrix_crc": k2_encode,
                              "rebuild_rs_bitmatrix": k1_rebuild,
-                             "reads_rs_bitmatrix":
-                                 launches["rs_bitmatrix"] - k1_rebuild},
+                             "batch_rebuild_rs_bitmatrix_crc":
+                                 batch["k2_launches"],
+                             "reads_rs_bitmatrix": k1_reads},
     }
+    if args.main_mib < MAIN_MIB:
+        out["reduced"] = f"volume {MAIN_MIB} MiB -> {args.main_mib} MiB"
+    return out
 
 
 def _same_files(a: str, b: str, what: str) -> None:
@@ -2478,20 +2863,33 @@ def check_encoded_shards(env, dirs: dict, reference: dict,
 
 def rebuild_launches(lost: dict, shard_bytes: dict,
                      budget: int = LIVE_REBUILD_BUDGET) -> int:
-    """Launches `ec.rebuild -batch` makes for RS volumes that lost the
-    shards `lost[vid]`: one group per lost set, each cut into sub-batches
-    of as many volumes as fit `budget` bytes of survivors and rebuilt
-    shards (the first volume's size bounds each)."""
+    """Launches `ec.rebuild -batch` makes on one card for RS volumes that
+    lost the shards `lost[vid]`: one group per lost set; in each, volumes
+    go whole, as many to a step as keep their survivors and rebuilt
+    shards (rows x the widest) within `budget` bytes, and a volume that
+    does not fit alone goes in column steps of budget // rows bytes,
+    whole MiB (at least one)."""
     groups: dict = {}
     for vid in sorted(lost):
         groups.setdefault(tuple(lost[vid]), []).append(vid)
     n = 0
     for missing, group in groups.items():
+        rows = 10 + len(missing)
+        sizes = [shard_bytes[vid] for vid in group]
         i = 0
-        while i < len(group):
-            per_vol = shard_bytes[group[i]] * (10 + len(missing))
-            i += max(1, min(len(group) - i, budget // per_vol))
+        while i < len(sizes):
+            if sizes[i] * rows > budget and sizes[i] > MIB:
+                cols = max(MIB, budget // rows // MIB * MIB)
+                n += -(-sizes[i] // cols)
+                i += 1
+                continue
+            j, widest = i + 1, sizes[i]
+            while j < len(sizes) and (j - i + 1) * rows * max(
+                    widest, sizes[j]) <= budget:
+                widest = max(widest, sizes[j])
+                j += 1
             n += 1
+            i = j
     return n
 
 
@@ -5771,9 +6169,10 @@ def _library_ms(torch, dev, masks_d, x, consts=None) -> dict:
 def batch_timings(torch, dev, kern: dict, args) -> dict:
     """K1 and K2 at the batched path's shapes: the (4, 10, 4 MiB) encode
     step with the RS parity matrix, the largest whole-shard rebuild step
-    (2, 10, ceil(512 MiB / 10) MiB) with the decode matrix of shards
-    1/3/9/12, and LRC's local repair 5 -> 1 (K1 at 1 MiB, K2 at one
-    26 MiB LRC shard).  Each kernel's timing keeps the queue filled;
+    (2, 10, ceil(512 MiB / 10) MiB) and phase 4's column step (1, 10,
+    18 MiB) with the decode matrix of shards 1/3/9/12, and LRC's local
+    repair 5 -> 1 (K1 at 1 MiB, K2 at one 26 MiB LRC shard).  Each
+    kernel's timing keeps the queue filled;
     its plain version and the matmul yardstick beside it."""
     from seaweedfs_tpu_torch.codecs import get_codec
     from seaweedfs_tpu_torch.ops.coder_cuda import (
@@ -5795,6 +6194,9 @@ def batch_timings(torch, dev, kern: dict, args) -> dict:
     rd5 = host_masks(bmat, 1, len(used5))
     shard_mib = -(-BATCH_MIB[0] // args.batch_div // 10)
     lrc_shard_mib = -(-LRC_MIB // args.batch_div // 10)
+    # Phase 4's batched rebuild of its volume: one column step of 10
+    # survivors and 4 rebuilt rows under the default budget.
+    step_mib = MAIN_BATCH_BYTES // (10 + len(REBUILD_LOST)) // MIB
     g = torch.Generator(device=dev).manual_seed(args.seed + 3)
 
     def rand(shape, count):
@@ -5805,6 +6207,8 @@ def batch_timings(torch, dev, kern: dict, args) -> dict:
         ("at_batch_4x10x4mib", par, rand((4, 10, KERNEL_N), 2), 4, 200, 2),
         ("at_rebuild_2x10x%dmib" % shard_mib, dec,
          rand((2, 10, shard_mib * MIB), 2), 4, 50, 1),
+        ("at_column_step_1x10x%dmib" % step_mib, dec,
+         rand((1, 10, step_mib * MIB), 3), 4, 50, 1),
         ("at_5_to_1", rd5, None, 1, 200, 2))
     out = {"rs_bitmatrix": {}, "rs_bitmatrix_crc": {}}
     for key, masks, xs, k_out, reps, preps in cases:
@@ -5950,11 +6354,12 @@ def _window_expectation(name: str, w: dict, main_shard: int, rs_shards: int,
         return "batch_encode", {
             "batch_stack": 10 * s, "batch_write": 14 * s,
             "batch_encode_device": stacked("batch_encode", 10, 4)}, {}
-    if name == "rs_rebuild":
+    if name in ("rs_rebuild", "main_batch_rebuild"):
+        s = main_shard if name == "main_batch_rebuild" else rs_shards
         return "batch_reconstruct", {
-            "batch_gather": 10 * rs_shards, "batch_scatter": 4 * rs_shards,
+            "batch_gather": 10 * s, "batch_scatter": 4 * s,
             "batch_rebuild_device": stacked("batch_reconstruct", 10, 4)}, \
-            {"rs": 10 * rs_shards}
+            {"rs": 10 * s}
     check(name == "lrc_rebuild", f"no expectation for window {name}")
     return "batch_reconstruct", {
         "batch_gather": 5 * lrc_shard, "batch_scatter": lrc_shard,
@@ -6000,8 +6405,10 @@ def phase_observability(torch, probe: dict, main_path: dict, batch: dict,
                   f"{name}: {w['stage_count']} stage observations for "
                   f"{w['rows'][key]} launches")
         rows = w.pop("_rows")
-        check(len(rows) == w["launches"], f"{name}: ring holds {len(rows)} "
-              f"of the window's {w['launches']} rows")
+        # A window of more launches than the ring keeps holds its last.
+        check(len(rows) == min(w["launches"], roofline._RING_MAX),
+              f"{name}: ring holds {len(rows)} of the window's "
+              f"{w['launches']} rows")
         for r in rows:
             check(r["achieved"] is not None and 0 < r["achieved"] <= 1,
                   f"{name}: achieved {r['achieved']} in {r}")
@@ -6097,7 +6504,10 @@ def phase_observability(torch, probe: dict, main_path: dict, batch: dict,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dat-mib", type=int, default=1024)
+    ap.add_argument("--main-mib", type=int, default=MAIN_MIB,
+                    help="phase 4's volume, MiB")
+    ap.add_argument("--dat-mib", type=int, default=1024,
+                    help="phase 8's volume, MiB")
     ap.add_argument("--batch-div", type=int, default=1,
                     help="divide the batched path's volume sizes by this")
     ap.add_argument("--live-mib", type=int, default=LIVE_LIMIT_MB,
@@ -6111,6 +6521,9 @@ def main() -> int:
     ap.add_argument("--ha-runs", type=int, default=0,
                     help="only build, probe and run phase 11 this many "
                          "times, one {\"ha_run\": ...} line each")
+    ap.add_argument("--main-only", action="store_true",
+                    help="only build, probe and run phase 4, one "
+                         "{\"main_path\": ...} line")
     args = ap.parse_args()
 
     import torch
@@ -6139,26 +6552,49 @@ def main() -> int:
     probe = phase_probe(torch, dev)
     if args.ha_runs:
         return ha_runs(torch, dev, args, smi)
+    if args.main_only:
+        with hooks("armed"):
+            main_path = phase_main_path(torch, dev, args)
+        main_path.pop("obs")
+        print(json.dumps({"main_path": main_path}))
+        print(smi)
+        return 0
 
-    kern = phase_kernels(torch, dev, args.seed)
+    phase_walls: dict = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_walls[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_walls[name]:.1f} s")
+        return out
+
+    kern = timed("3_kernels", phase_kernels, torch, dev, args.seed)
     with hooks("armed"):
-        main_path = phase_main_path(torch, dev, args)
-        batch = phase_batch(torch, dev, args)
-        storage = phase_storage(torch, dev, args)
-        cluster = phase_cluster(torch, dev, args)
-        live = phase_live_cluster(torch, dev, args)
-        ha = phase_ha_cluster(torch, dev, args)
-        filer = phase_filer_cluster(torch, dev, args)
-        gateway = phase_gateway_cluster(torch, dev, args)
+        main_path = timed("4_main", phase_main_path, torch, dev, args)
+        batch = timed("6_batch", phase_batch, torch, dev, args)
+        storage = timed("8_storage", phase_storage, torch, dev, args)
+        cluster = timed("9_cluster", phase_cluster, torch, dev, args)
+        live = timed("10_live", phase_live_cluster, torch, dev, args)
+        ha = timed("11_ha", phase_ha_cluster, torch, dev, args)
+        filer = timed("12_filer", phase_filer_cluster, torch, dev, args)
+        gateway = timed("13_gateway", phase_gateway_cluster, torch, dev,
+                        args)
+    t0 = time.perf_counter()
     timings = phase_timings(torch, dev, kern, args.seed)
     for name, rows in batch_timings(torch, dev, kern, args).items():
         timings[name].update(rows)
+    phase_walls["5_timings"] = time.perf_counter() - t0
     batch["single_volume_encode_gb_s"] = main_path["encode_gb_s"]
     # Device busy share: launches x kernel ms at the step's shape (the
     # encode's (4, 10, 4 MiB) and the rebuild's largest step, both upper
     # bounds for the smaller steps) over the step's wall.
     k2 = timings["rs_bitmatrix_crc"]
     rebuild_key = next(k for k in k2 if k.startswith("at_rebuild"))
+    column_key = next(k for k in k2 if k.startswith("at_column_step"))
+    main_path["batch_rebuild"]["device_busy_share"] = \
+        main_path["batch_rebuild"]["steps"] * k2[column_key]["ms"] / 1e3 \
+        / main_path["walls_s"]["batch_rebuild"]
     for step, ms in (("rs_encode", k2["at_batch_4x10x4mib"]["ms"]),
                      ("rs_rebuild", k2[rebuild_key]["ms"])):
         n = batch[step]["launches"]["rs_bitmatrix_crc"]["launches"]
@@ -6252,6 +6688,7 @@ def main() -> int:
     print(json.dumps({"ha_cluster": ha}))
     print(json.dumps({"filer_cluster": filer}))
     print(json.dumps({"gateway_cluster": gateway}))
+    print(json.dumps({"phase_walls_s": phase_walls}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,33 +1,42 @@
-"""Batched EC rebuild of many volumes: whole shard files per device step.
+"""Batched EC rebuild of many volumes under a byte budget per device step.
 
 Port of seaweedfs_tpu/parallel/cluster_rebuild.py.  Its device half is
 `rebuild_group` (the reference's `_rebuild_group_inner`), with the
-survivor gather and the placement of rebuilt shards passed in as
-functions:
+survivors' size, their gather and the placement of rebuilt shards
+passed in as functions:
 
-- ``fetch_rows(vid, used) -> rows``: the `used` survivor shards of one
-  volume, in that order (bytes or uint8 arrays of one length);
-- ``place(vid, missing, shards, crcs) -> suffix``: store the rebuilt
-  shards (uint8 arrays, in `missing` order) and their `.ecc` block CRCs
-  (one list per shard from the device, or None when the CRCs were not
-  fused); the returned text (or None) ends the volume's report line.
+- ``shard_size(vid) -> int``: the length of each survivor shard;
+- ``fetch_rows(vid, used, span) -> rows``: the `used` survivor shards
+  of one volume, in that order, whole (`span` None) or their bytes
+  ``[lo, hi)`` (bytes or uint8 arrays);
+- ``place(vid, missing, lo, shards, last, crcs) -> suffix``: store the
+  rebuilt bytes from offset `lo` of each shard (uint8 arrays, in
+  `missing` order); `last` marks the volume's last piece, which alone
+  carries the `.ecc` block CRCs of the whole shards (one list per shard
+  from the device, or None when the CRCs were not fused) and whose
+  returned text (or None) ends the volume's report line.
 
 Its network half is `batch_rebuild`, the shell's `ec.rebuild -batch`:
 `plan_rebuilds` groups the cluster's degraded EC volumes by (codec,
-survivors, missing), `_fetch_shard` gathers survivors from their
-holders over HTTP with failover and deadlines, and `_scatter_volume`
-pushes the rebuilt shards (their device `.ecc` fragments first) to
-balanced targets (`_TargetPicker`) and mounts them.
+survivors, missing), `_fetch_shard` gathers survivors (whole, or a
+range) from their holders over HTTP with failover and deadlines, and
+`_scatter_volume` pushes the rebuilt shards (their device `.ecc`
+fragments first) to balanced targets (`_TargetPicker`) and mounts them.
 
 Every volume of a group shares a codec and lost the same shards, so one
-decode matrix covers the group; volumes are stacked on the "vol" axis in
-sub-batches of at most `max_batch_bytes` and each sub-batch is one K2
-launch (fused CRC) or K1 launch per device.  `batch_rebuild_files` is
+decode matrix covers the group.  Every step stacks at most
+`max_batch_bytes` of survivor input plus rebuilt output and is one K2
+launch (fused CRC) or K1 launch per device: volumes that fit go whole,
+as many to a step as fit, on the "vol" axis; a volume that does not fit
+alone goes in column steps, each a multiple of the `.ecc` block times
+the mesh's "col" axis wide (the last may be ragged), so its fused CRCs
+still fold into whole blocks.  The reference gathers such a volume whole
+into one step (~62 GB of host memory for a 30 000 MiB volume that lost
+4 shards); the bytes written are the same.  `batch_rebuild_files` is
 the local implementation: it plans the groups from the shard files
-beside each base, reads survivor shard files and writes rebuilt shards
-and their `.ecc` entries.  Fetching survivors from their holders and
-scattering the rebuilt shards plug into `rebuild_group` in the cluster
-layer.
+beside each base, reads survivor shard files (a range at a time) and
+writes rebuilt shards at their offsets and, after a volume's last step,
+their `.ecc` entries.
 
 The stages report as the JAX package's do: `batch_gather`,
 `batch_rebuild_device` and `batch_scatter` (the placement) in the
@@ -184,19 +193,45 @@ def plan_repair_reads(codec: Codec, present, missing) -> dict:
     }
 
 
-def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
-                  mesh: Mesh, max_batch_bytes: int = 1 << 28,
+def _steps(sizes: list[int], rows: int, unit: int, max_batch_bytes: int):
+    """The device steps of one group, in volume order: (indices into
+    `sizes`, None) for whole volumes, as many to a step as keep rows x
+    the widest at most `max_batch_bytes`; (one index, (lo, hi)) for
+    each column step of a volume that does not fit alone, `unit`-aligned
+    and at most `max_batch_bytes` of rows (at least one `unit`)."""
+    i = 0
+    while i < len(sizes):
+        if sizes[i] * rows > max_batch_bytes and sizes[i] > unit:
+            cols = max(unit, max_batch_bytes // rows // unit * unit)
+            for lo in range(0, sizes[i], cols):
+                yield [i], (lo, min(sizes[i], lo + cols))
+            i += 1
+            continue
+        j, widest = i + 1, sizes[i]
+        while j < len(sizes) and (j - i + 1) * rows * max(
+                widest, sizes[j]) <= max_batch_bytes:
+            widest = max(widest, sizes[j])
+            j += 1
+        yield list(range(i, j)), None
+        i = j
+
+
+def rebuild_group(codec: Codec, present, missing, vids, shard_size,
+                  fetch_rows, place, mesh: Mesh,
+                  max_batch_bytes: int = 1 << 28,
                   depth: int | None = None,
                   recorder: PipelineRecorder | None = None,
                   stages: dict | None = None, progress=None) -> list[str]:
     """Streamed rebuild of one survivor-signature group: the producer
-    gathers and stacks the next sub-batch while the device decodes the
-    current one and the drain thread places the completed shards.
-    `recorder` collects the stage spans; without one, a bounded recorder
-    is made while `roofline.ARMED`, and armed, it is folded into
-    `roofline.LEDGER.note_pipeline` as "rebuild".  `stages` collects the
-    batch_* stage seconds and bytes.  Returns one line per volume, each
-    also handed to `progress`."""
+    gathers and stacks the next step while the device decodes the
+    current one and the drain thread places the completed pieces.  Each
+    step holds at most `max_batch_bytes` of survivor input plus rebuilt
+    output (see the module docstring), but never less than one volume
+    of up to one column unit.  `recorder` collects the stage spans;
+    without one, a bounded recorder is made while `roofline.ARMED`, and
+    armed, it is folded into `roofline.LEDGER.note_pipeline` as
+    "rebuild".  `stages` collects the batch_* stage seconds and bytes.
+    Returns one line per volume, each also handed to `progress`."""
     from .cluster_encode import (device_streams, mesh_on_cuda,
                                  pipeline_depth, side_streams)
     present, missing = tuple(present), tuple(missing)
@@ -225,50 +260,49 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
     saved = f" ({codec.name}: read {len(used)} shards vs " \
             f"{codec.data_shards} for RS)" \
         if len(used) < codec.data_shards else ""
+    sizes = [int(shard_size(vid)) for vid in vids]
+    # A split volume's device CRCs, gathered step by step.
+    crc_acc: dict[int, list[list[int]]] = {}
 
     def produce():
-        i = 0
-        bi = 0
-        while i < len(vids):
-            # The first volume's shard size bounds the sub-batch.
+        steps = _steps(sizes, len(used) + len(missing), block * col_axis,
+                       max_batch_bytes)
+        for bi, (idx, span) in enumerate(steps):
             t_gather = time.perf_counter()
-            rows0 = fetch_rows(vids[i], used)
-            per_vol = len(rows0[0]) * (len(used) + len(missing))
-            chunk_v = max(1, min(len(vids) - i,
-                                 int(max_batch_bytes // max(per_vol, 1))))
-            chunk = vids[i:i + chunk_v]
-            fetched = [rows0] + [fetch_rows(vid, used) for vid in chunk[1:]]
-            gathered = sum(len(row) for rows in fetched for row in rows)
+            chunk = [vids[k] for k in idx]
+            widths = [sizes[k] for k in idx] if span is None \
+                else [span[1] - span[0]]
+            fetched = [fetch_rows(vid, used, span) for vid in chunk]
+            for vid, rows, width in zip(chunk, fetched, widths):
+                for row in rows:
+                    if len(row) != width:
+                        raise ValueError(
+                            f"volume {vid}: survivor shards disagree "
+                            f"on size ({len(row)} vs {width})")
+            gathered = sum(widths) * len(used)
             ec_repair_read_bytes_total.inc(gathered, codec=codec.name)
-            sizes = [len(rows[0]) for rows in fetched]
-            n_pad = _pad_to(max(sizes), align)
+            n_pad = _pad_to(max(widths), align)
             v_pad = _pad_to(len(chunk), vol_axis)
             stacked = torch.zeros((v_pad, len(used), n_pad),
                                   dtype=torch.uint8, pin_memory=on_cuda)
             view = stacked.numpy()
             for v, rows in enumerate(fetched):
                 for r, row in enumerate(rows):
-                    if len(row) != sizes[v]:
-                        raise ValueError(
-                            f"volume {chunk[v]}: survivor shards disagree "
-                            f"on size ({len(row)} vs {sizes[v]})")
                     view[v, r, :len(row)] = np.frombuffer(row, np.uint8)
             t_gend = time.perf_counter()
             observe_batch_stage(stages, "batch_gather", t_gend - t_gather,
                                 gathered)
             if rec is not None:
                 rec.note_span("stack", bi, t_gather, t_gend)
-            yield stacked, chunk, sizes, bi
-            bi += 1
-            i += chunk_v
+            yield stacked, idx, span, widths, bi
 
     def dispatch(item):
-        stacked, chunk, sizes, bi = item
+        stacked, idx, span, widths, bi = item
         t_d0 = time.perf_counter()
         # Device CRCs of the rebuilt rows ride along when every shard of
-        # the sub-batch covers whole `.ecc` blocks (shard files are 1 MiB
-        # block padded by construction).
-        use_crc = fused and all(s % block == 0 for s in sizes)
+        # the step covers whole `.ecc` blocks (shard files are 1 MiB
+        # block padded by construction; column steps start on a block).
+        use_crc = fused and all(sizes[k] % block == 0 for k in idx)
         with device_streams(streams):
             step = reconstruct_step(stacked, present, missing, mesh, codec,
                                     use_crc)
@@ -276,10 +310,10 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
         t_d1 = time.perf_counter()
         if rec is not None:
             rec.note_span("dispatch", bi, t_d0, t_d1)
-        return step, use_crc, chunk, sizes, stacked.nbytes, bi, t_d1
+        return step, use_crc, idx, span, widths, stacked.nbytes, bi, t_d1
 
     def drain(handle):
-        step, use_crc, chunk, sizes, nbytes, bi, t_d1 = handle
+        step, use_crc, idx, span, widths, nbytes, bi, t_d1 = handle
         t_dev = time.perf_counter()
         step.wait()
         rebuilt = step.host_out()
@@ -301,19 +335,29 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
                     device=mesh.device_list()[0])
         t_scatter = time.perf_counter()
         scattered = 0
-        for v, vid in enumerate(chunk):
-            shards = [rebuilt[v, m, :sizes[v]] for m in range(len(missing))]
-            shard_crcs = None
+        lo = 0 if span is None else span[0]
+        for v, k in enumerate(idx):
+            vid, width = vids[k], widths[v]
+            last = lo + width == sizes[k]
+            shards = [rebuilt[v, m, :width] for m in range(len(missing))]
+            step_crcs = None
             if crcs is not None:
-                nb = sizes[v] // block
-                shard_crcs = [[int(c) for c in crcs[v, m, :nb]]
-                              for m in range(len(missing))]
-            scattered += sizes[v] * len(missing)
-            placed = place(vid, missing, shards, shard_crcs)
+                nb = width // block
+                step_crcs = [[int(c) for c in crcs[v, m, :nb]]
+                             for m in range(len(missing))]
+                if span is not None:  # a split volume's, step by step
+                    acc = crc_acc.setdefault(k, [[] for _ in missing])
+                    for m, c in enumerate(step_crcs):
+                        acc[m] += c
+                    step_crcs = crc_acc.pop(k) if last else None
+            scattered += width * len(missing)
+            placed = place(vid, missing, lo, shards, last, step_crcs)
+            if not last:
+                continue
             if all_local:
                 emit_event("ec.repair.local", vid=vid, codec=codec.name,
                            shard=list(missing), reads=len(used),
-                           bytes=sizes[v] * len(used))
+                           bytes=sizes[k] * len(used))
             out.append(f"volume {vid}: rebuilt shards {list(missing)}"
                        + (placed or "") + saved)
             if progress:
@@ -330,14 +374,29 @@ def rebuild_group(codec: Codec, present, missing, vids, fetch_rows, place,
     return out
 
 
-def _read_rows(base: str, used) -> list[np.ndarray]:
-    return [np.fromfile(base + to_ext(sid), dtype=np.uint8) for sid in used]
+def _read_rows(base: str, used, span) -> list:
+    if span is None:
+        return [np.fromfile(base + to_ext(sid), dtype=np.uint8)
+                for sid in used]
+    lo, hi = span
+    rows = []
+    for sid in used:
+        with open(base + to_ext(sid), "rb") as f:
+            rows.append(os.pread(f.fileno(), hi - lo, lo))
+    return rows
 
 
-def _write_rebuilt(base: str, missing, shards, crcs) -> None:
+def _write_rebuilt(base: str, missing, lo: int, shards, last: bool,
+                   crcs) -> None:
+    """Write each rebuilt piece at its offset (a shard's first piece
+    creates the file); after the last, set the shards' `.ecc`
+    entries."""
     for m, sid in enumerate(missing):
-        with open(base + to_ext(sid), "wb") as f:
+        with open(base + to_ext(sid), "wb" if lo == 0 else "r+b") as f:
+            f.seek(lo)
             f.write(np.ascontiguousarray(shards[m]))
+    if not last:
+        return
     # Load-modify-save of the shared sidecar, under its lock.
     with ecc_lock(base):
         ecc = ShardChecksums.load(base)
@@ -353,12 +412,13 @@ def batch_rebuild_files(bases, mesh: Mesh | None = None,
                         recorder: PipelineRecorder | None = None
                         ) -> list[str]:
     """Rebuild the missing shard files of the local EC volumes `bases`
-    (paths without extension) in batched device steps, and their `.ecc`
-    entries.  Each volume's codec comes from its `.vif`; volumes are
-    grouped by (codec, surviving shards, missing shards).  The mesh
-    defaults to every visible card (raising without one); a mesh of CPU
-    devices runs the kernels' plain versions.  Returns one line per
-    volume, skipped ones included."""
+    (paths without extension) in batched device steps of at most
+    `max_batch_bytes` each, and their `.ecc` entries.  Each volume's
+    codec comes from its `.vif`; volumes are grouped by (codec,
+    surviving shards, missing shards).  The mesh defaults to every
+    visible card (raising without one); a mesh of CPU devices runs the
+    kernels' plain versions.  Returns one line per volume, skipped ones
+    included."""
     if mesh is None:
         mesh = make_mesh()
     groups: dict[tuple, list[str]] = {}
@@ -380,9 +440,11 @@ def batch_rebuild_files(bases, mesh: Mesh | None = None,
             continue
         groups.setdefault((codec.name, present, missing), []).append(base)
     for (name, present, missing), group in sorted(groups.items()):
-        messages += rebuild_group(get_codec(name), present, missing, group,
-                                  _read_rows, _write_rebuilt, mesh,
-                                  max_batch_bytes, depth, recorder)
+        messages += rebuild_group(
+            get_codec(name), present, missing, group,
+            lambda base, sid=present[0]: os.path.getsize(base + to_ext(sid)),
+            _read_rows, _write_rebuilt, mesh, max_batch_bytes, depth,
+            recorder)
     return messages
 
 
@@ -390,13 +452,16 @@ def batch_rebuild_files(bases, mesh: Mesh | None = None,
 
 def _fetch_shard(holders: list[str], vid: int, sid: int,
                  attempt_timeout: float | None = None,
-                 total_deadline: float | None = None) -> bytes:
-    """Fetch one whole shard, failing over across every holder of it
-    (store_ec.go:264-320 walks all sourceDataNodes) with a second round
-    for transient errors.  Every attempt runs under `attempt_timeout`,
-    all of them together under `total_deadline`: a dead holder costs one
-    bounded attempt, and a shard with only dead holders fails the batch
-    within the deadline instead of hanging it."""
+                 total_deadline: float | None = None,
+                 span: tuple[int, int] | None = None) -> bytes:
+    """Fetch one whole shard, or its bytes [lo, hi) of `span`, failing
+    over across every holder of it (store_ec.go:264-320 walks all
+    sourceDataNodes) with a second round for transient errors.  Every
+    attempt runs under `attempt_timeout`, all of them together under
+    `total_deadline`: a dead holder costs one bounded attempt, and a
+    shard with only dead holders fails the batch within the deadline
+    instead of hanging it.  A range past the shard's end comes back
+    short (empty past it)."""
     attempt_timeout = attempt_timeout or FETCH_ATTEMPT_TIMEOUT
     total_deadline = total_deadline or FETCH_TOTAL_DEADLINE
     deadline = time.monotonic() + total_deadline
@@ -416,9 +481,12 @@ def _fetch_shard(holders: list[str], vid: int, sid: int,
                 if _fault.ARMED:
                     _fault.hit("ec.fetch_shard", holder=url, vid=vid,
                                shard=sid)
+                what = f"shard_file?volume={vid}&shard={sid}" \
+                    if span is None else \
+                    f"shard_read?volume={vid}&shard={sid}" \
+                    f"&offset={span[0]}&size={span[1] - span[0]}"
                 data = rpc.call(
-                    f"http://{url}/admin/ec/shard_file?volume={vid}"
-                    f"&shard={sid}",
+                    f"http://{url}/admin/ec/{what}",
                     timeout=min(attempt_timeout, remaining),
                     headers={**rpc.PRIORITY_LOW,
                              **_flows.tag("ec.gather")})
@@ -439,6 +507,40 @@ def _fetch_shard(holders: list[str], vid: int, sid: int,
     raise rpc.RpcError(
         502, f"shard {vid}.{sid} unreachable on any holder: "
              + "; ".join(errors[:6]))
+
+
+def _shard_size(holders: list[str], vid: int, sid: int) -> int:
+    """A shard's length, from one-byte ranged reads: the smallest whole
+    `.ecc` block count past its end by doubling, then bisection, then
+    (for a ragged shard, which the batched encoders never write) the
+    byte within its last block.  A shard of S MiB costs about
+    2 log2(S) reads."""
+    def has(offset: int) -> bool:
+        return bool(_fetch_shard(holders, vid, sid, span=(offset,
+                                                          offset + 1)))
+    if not has(0):
+        return 0
+    block = SMALL_BLOCK_SIZE
+    hi = 1
+    while has(hi * block):
+        hi *= 2
+    lo = hi // 2  # blocks: lo * block < size <= hi * block
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if has(mid * block):
+            lo = mid
+        else:
+            hi = mid
+    if has(hi * block - 1):
+        return hi * block
+    first, last = lo * block, hi * block - 1  # has(first), not has(last)
+    while last - first > 1:
+        mid = (first + last) // 2
+        if has(mid):
+            first = mid
+        else:
+            last = mid
+    return last
 
 
 class _TargetPicker:
@@ -515,20 +617,43 @@ def _rebuild_group(env, mesh, pool, picker, codec, present, missing,
         t0 = time.perf_counter()
         stages: dict[str, list[float]] = {}
 
-        def fetch_rows(vid, used):
-            return _fetch_rows(pool, vid, locs_of[vid], used)
+        sizes = {}
 
-        def place(vid, missing, shards, crcs):
+        def shard_size(vid):
+            sid = present[0]
+            sizes[vid] = _shard_size(locs_of[vid][sid], vid, sid)
+            return sizes[vid]
+
+        def fetch_rows(vid, used, span):
+            return _fetch_rows(pool, vid, locs_of[vid], used, span)
+
+        # A split volume's rebuilt shards collect here, one host buffer
+        # per lost shard, and are pushed whole after its last step: the
+        # push protocol stays whole-shard, and the host holds the
+        # output, not the survivors.
+        pieces: dict[int, list[np.ndarray]] = {}
+
+        def place(vid, missing, lo, shards, last, crcs):
+            if lo == 0 and last:
+                payloads = [np.ascontiguousarray(s).tobytes()
+                            for s in shards]
+            else:
+                bufs = pieces.setdefault(vid, [
+                    np.empty(sizes[vid], np.uint8) for _ in missing])
+                for buf, s in zip(bufs, shards):
+                    buf[lo:lo + len(s)] = s
+                if not last:
+                    return None
+                payloads = [memoryview(b) for b in pieces.pop(vid)]
             placed = _scatter_volume(
-                env, pool, picker, vid, locs_of[vid], missing,
-                [np.ascontiguousarray(s).tobytes() for s in shards],
+                env, pool, picker, vid, locs_of[vid], missing, payloads,
                 shard_crcs=crcs)
             return " -> " + ", ".join(f"{s}@{u}" for s, u in placed)
 
         try:
-            out = rebuild_group(codec, present, missing, vids, fetch_rows,
-                                place, mesh, max_batch_bytes, depth,
-                                stages=stages, progress=progress)
+            out = rebuild_group(codec, present, missing, vids, shard_size,
+                                fetch_rows, place, mesh, max_batch_bytes,
+                                depth, stages=stages, progress=progress)
         except Exception as e:
             emit_event("ec.rebuild.finish", severity="error",
                        volumes=vids, batch=True, missing=list(missing),
@@ -546,10 +671,11 @@ def _rebuild_group(env, mesh, pool, picker, codec, present, missing,
         return out
 
 
-def _fetch_rows(pool, vid, locs, used) -> list[bytes]:
-    """Fetch the `used` survivor shards of one volume in parallel, each
-    failing over across its holders (store_ec.go:322-376)."""
-    futs = [pool.submit(_fetch_shard, locs[sid], vid, sid)
+def _fetch_rows(pool, vid, locs, used, span=None) -> list[bytes]:
+    """Fetch the `used` survivor shards of one volume (whole, or their
+    bytes [lo, hi) of `span`) in parallel, each failing over across its
+    holders (store_ec.go:322-376)."""
+    futs = [pool.submit(_fetch_shard, locs[sid], vid, sid, span=span)
             for sid in used]
     return [f.result() for f in futs]
 
@@ -593,7 +719,7 @@ def _push_shard(vid: int, sid: int, payload: bytes, target: str,
 
 
 def _scatter_volume(env, pool, picker, vid, locs, missing,
-                    shards: list[bytes],
+                    shards: list,
                     shard_crcs=None) -> list[tuple[int, str]]:
     """Push rebuilt shards to balanced targets, each pulling the .ecx
     index alongside, then mount.  With `shard_crcs` (the device's

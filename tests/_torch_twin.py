@@ -38,6 +38,8 @@ during a run, alike in both packages, and so do the bytes the test
 file itself draws from `os.urandom` (its `import os`, at any depth, is
 the twin's); file-id cookies and volume picks, and trace and span ids,
 draw from seeded streams of their own (`seed_placement`, `_SeededOs`).
+The process-wide counters that reference cases read as absolute values
+(`FRESH_COUNTERS`) start empty in each package's half.
 An assert on a thread other than the case's own is compared as one of
 a set: how often such a thread loops, and how its asserts interleave
 with the case's, is the scheduler's.  A case whose test holds no assert
@@ -64,6 +66,7 @@ from __future__ import annotations
 import ast
 import dataclasses
 import hashlib
+import importlib
 import inspect
 import itertools
 import operator
@@ -92,6 +95,14 @@ _CMP = {"Eq": operator.eq, "NotEq": operator.ne, "Lt": operator.lt,
         "Is": operator.is_, "IsNot": operator.is_not,
         "In": lambda a, b: a in b, "NotIn": lambda a, b: a not in b}
 BIG = 4096
+# Process-wide counters whose absolute values reference cases assert
+# on: a case that reads "no series yet" or "the count before" sees what
+# every earlier test in the process left there (under xdist's
+# --dist loadfile, the reference's own file may have run in the same
+# worker).  Each package's half of a case starts them empty, as a fresh
+# process has them, and gets the process's values back afterwards.
+FRESH_COUNTERS = (("stats.metrics", "ec_stage_bytes"),
+                  ("events.journal", "events_total"))
 
 
 class Recorder:
@@ -350,15 +361,20 @@ class _Rewrite(ast.NodeTransformer):
 _MODULES: dict = {}
 
 
-def load(name: str, pkg: str, port_subs: tuple = ()) -> types.ModuleType:
+def load(name: str, pkg: str, port_subs: tuple = (),
+         subs: tuple = ()) -> types.ModuleType:
     """The twin copy of tests/<name>.py for `pkg`, compiled once per
-    process.  `port_subs` are (text, replacement) pairs applied to the
-    port's copy after the package rename."""
+    process.  `subs` are (text, replacement) pairs applied to both
+    packages' copies; `port_subs` to the port's copy after the package
+    rename."""
     key = (name, pkg)
     if key in _MODULES:
         return _MODULES[key]
     with open(os.path.join(TESTS, name + ".py")) as f:
         src = f.read()
+    for old, new in subs:
+        assert old in src, f"{name}: {old!r} not in the source"
+        src = src.replace(old, new)
     if pkg == PORT:
         src = _REF_NAME.sub(PORT, src)
         for old, new in port_subs:
@@ -441,11 +457,12 @@ class TwinFile:
     `record_subs` are (port's text, reference's text) pairs applied to
     the strings the port's run records, for the names `port_subs`
     mapped: the records then compare as if the names were the
-    reference's."""
+    reference's.  `subs` edit both packages' copies alike, for what the
+    file's fixtures set up (never an assert)."""
 
     def __init__(self, name: str, clocked: tuple = (), prelude=None,
                  port_subs: tuple = (), unrecorded=None,
-                 record_subs: tuple = ()):
+                 record_subs: tuple = (), subs: tuple = ()):
         self.name = name.removesuffix(".py")
         self.clocked = clocked
         self.prelude = dict(prelude or {})
@@ -453,8 +470,8 @@ class TwinFile:
                            (unrecorded or {}).items()}
         self.port_subs = tuple(port_subs)
         self.record_subs = tuple(record_subs)
-        self.ref = load(self.name, PACKAGES[0])
-        load(self.name, PORT, self.port_subs)
+        self.ref = load(self.name, PACKAGES[0], subs=subs)
+        load(self.name, PORT, self.port_subs, subs)
         self.cases: dict[str, Case] = {}
         for attr, obj in vars(self.ref).items():
             if attr.startswith("test") and inspect.isfunction(obj) \
@@ -633,6 +650,9 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=(),
                "tmp_path_factory": lambda: factory,
                "monkeypatch": lambda: mp}
     _cpu_defaults(mp, pkg)
+    for name, attr in FRESH_COUNTERS:
+        counter = getattr(importlib.import_module(f"{pkg}.{name}"), attr)
+        mp.setattr(counter, "_values", {})
     # Ids drawn from `secrets` (hard-link ids) come from the seeded
     # `random` instead, alike in both packages.
     mp.setattr(secrets, "token_hex", _seeded_token_hex)

@@ -193,9 +193,9 @@ def test_rebuild_group_takes_gather_and_placement(tmp_path):
     placed = {}
     present = tuple(range(1, 14))
     lines = cluster_rebuild.rebuild_group(
-        get_codec("rs"), present, (0,), ["a", "b"],
-        lambda vid, used: [full[vid][s] for s in used],
-        lambda vid, missing, shards, crcs: placed.update(
+        get_codec("rs"), present, (0,), ["a", "b"], lambda vid: MIB,
+        lambda vid, used, span: [full[vid][s] for s in used],
+        lambda vid, missing, lo, shards, last, crcs: placed.update(
             {vid: (list(missing), shards, crcs)}),
         _mesh(), depth=0)
     assert len(lines) == 2
@@ -204,8 +204,9 @@ def test_rebuild_group_takes_gather_and_placement(tmp_path):
         assert missing == [0] and np.array_equal(shards[0], full[vid][0])
     with pytest.raises(ValueError, match="survivor shards disagree on size"):
         cluster_rebuild.rebuild_group(
-            get_codec("rs"), present, (0,), ["a"],
-            lambda vid, used: [full[vid][s][: MIB - (s == 5)] for s in used],
+            get_codec("rs"), present, (0,), ["a"], lambda vid: MIB,
+            lambda vid, used, span: [full[vid][s][: MIB - (s == 5)]
+                                     for s in used],
             lambda *a: None, _mesh(), depth=0)
 
 

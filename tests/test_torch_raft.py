@@ -84,6 +84,24 @@ def wait_leader(P, nodes, timeout=DEADLINE, exclude=()):
     raise AssertionError("no single leader elected")
 
 
+def propose(P, nodes, cmd, exclude=()):
+    """Commit `cmd` through the leader, as a client does: a node that
+    lost the lead before it appended the command answers NotLeader, and
+    the command goes to the next leader.  With a 0.2-0.4 s election
+    timeout, a follower on a loaded host can start an election between
+    `wait_leader` and the proposal.  A command that was appended and
+    then lost the lead may yet commit, so that NotLeader is raised."""
+    deadline = time.monotonic() + DEADLINE
+    while True:
+        leader = wait_leader(P, nodes, exclude=exclude)
+        try:
+            return leader.propose(cmd, timeout=DEADLINE)
+        except P.raft.NotLeader:
+            if any(e.get("cmd") is cmd for e in list(leader.log)) \
+                    or time.monotonic() > deadline:
+                raise
+
+
 def teardown(nodes, servers):
     for x in nodes:
         x.stop()
@@ -126,15 +144,15 @@ def test_raft_leader_failover_preserves_log(tmp_path):
         sinks = [[], [], []]
         servers, nodes = mk_raft_cluster(P, 3, d, sinks)
         try:
-            leader = wait_leader(P, nodes)
             for i in range(3):
-                leader.propose({"v": i})
+                propose(P, nodes, {"v": i})
+            leader = wait_leader(P, nodes)
             dead = nodes.index(leader)
             leader.stop()
             servers[dead].stop()
             survivors = [x for x in nodes if x is not leader]
+            propose(P, survivors, {"v": 99})
             new_leader = wait_leader(P, survivors)
-            new_leader.propose({"v": 99}, timeout=DEADLINE)
             live = [sinks[nodes.index(x)] for x in survivors]
             wait_for(lambda: all(len(user_cmds(s)) == 4 for s in live))
             return {"survivors": [user_cmds(s) for s in live],

@@ -83,13 +83,16 @@ def _normalise(text: str, cluster, root) -> str:
 def _reset(pkg) -> None:
     """The package's process-global planes that its in-process servers
     fold into verb output (the event journal, the roofline ledger's rows,
-    the wire-flow ledger), its armed faults and breakers, as a fresh
-    process has them, and its continuous profiler (which SEAWEEDFS_TPU_
-    PPROF=1 starts once per process) stopped: tests before and after
-    this file in the worker must not see each other's."""
+    the wire-flow ledger, the tier and chunk caches' contents and
+    counters), its armed faults and breakers, as a fresh process has
+    them, and its continuous profiler (which SEAWEEDFS_TPU_PPROF=1 starts
+    once per process) stopped: tests before and after this file in the
+    worker must not see each other's."""
     mod(pkg, "events").JOURNAL.clear()
     mod(pkg, "stats.roofline").LEDGER.reset()
     mod(pkg, "stats.flows").LEDGER.reset()
+    mod(pkg, "storage.remote_cache").CACHE.reset()
+    mod(pkg, "storage.chunk_cache").CACHE.reset()
     mod(pkg, "fault").disarm_all()
     mod(pkg, "cluster.resilience").reset_breakers()
     pprof = mod(pkg, "utils.pprof")
