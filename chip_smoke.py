@@ -7,7 +7,10 @@ Run from the repository root on a machine with a CUDA card:
                           [--batch-div 1] [--live-mib 256] [--ha-mib 512]
                           [--filer-mib 256] [--gateway-mib 1024]
 
-`--main-only` runs phases 1, 2 and 4 alone (phase 4 at --main-mib).
+`--main-only` runs phases 1, 2 and 4 alone (phase 4 at --main-mib);
+`--ha-runs N` phase 11 alone N times; `--gateway-runs N` phase 13 alone
+N times (`--gateway-small-div D` divides its small objects and messages);
+`--wire-mib M --wire-parent DIR` the wire measurement (wire_turns).
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -177,7 +180,11 @@ Phases; any failure raises and the script exits non-zero:
              seeded needles are read through the client (K1 10->1 in the
              volume servers for each interval on a lost shard), the dead
              node is swept, `ec.rebuild -batch` runs here (K2 with the
-             decode masks), every rebuilt shard must equal its original
+             decode masks), every rebuilt shard must equal its original,
+             each target's own /debug/flows rows must show at least one
+             ec.scatter request per rebuilt shard per column step of its
+             volume (a split volume's pieces go as each step drains) and
+             exactly the rebuilt shards' bytes beside the .ecc fragment,
              and every needle read back byte-equal.  Launches are counted
              here by the wrappers and in the volume servers through the
              master's /cluster/device (per node, from a beat after each
@@ -231,8 +238,11 @@ Phases; any failure raises and the script exits non-zero:
              300 seeded degraded reads (K1 10->1 in the survivors, one
              per interval on a lost shard); the new leader's repair
              daemon rebuilds the lost shards (one batched K2 decode step
-             in the leader's process, read from its /cluster/device
-             rows), each equal to its original; every needle reads back.
+             per column step in the leader's process, read from its
+             /cluster/device rows), each equal to its original, the
+             leader's RSS read just before the kill and after the repair
+             with its peak between (sampled as the repair is polled);
+             every needle reads back.
              `cluster.check`, `cluster.roofline` (the card's K1/K2 rows),
              `cluster.flows` and `events.ls` on the leader; `weed
              benchmark -n 5000 -size 1024 -c 16` against it.
@@ -302,6 +312,10 @@ Phases; any failure raises and the script exits non-zero:
              restarted, reading sealed segments), the WFS file through a
              fresh WFS, and `filer.replicate -once -sink=local://...` of
              the copied tree; every byte must equal what was acknowledged.
+             Beside each pass's K1: its wire rows (the survivors' and the
+             filer's requests in by purpose, the survivors' answers by
+             status class, the chunk reads the pass asks for, the chunks it
+             reads and those the cache did not hold).
              `ec.rebuild` restores the lost shards byte for byte and
              `volume.fsck -orphans` finds 0 missing and 0 orphans.  Last,
              X4 on the card: 2 gloo ranks (NCCL refuses two ranks on one
@@ -2644,17 +2658,28 @@ def phase_cluster(torch, dev, args) -> dict:
 
 
 def port_process(args: list[str], log_path: str,
-                 launch: str = MASTER_LAUNCH):
+                 launch: str = MASTER_LAUNCH, tree: str = REPO):
     """`python -m seaweedfs_tpu_torch <args>` with jax, jaxlib and
-    seaweedfs_tpu blocked (`launch`), its output in log_path."""
+    seaweedfs_tpu blocked (`launch`), its output in log_path; the package
+    is the one in `tree` (a checkout of this repository)."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (REPO, os.environ.get("PYTHONPATH", "")) if p))
+        p for p in (tree, os.environ.get("PYTHONPATH", "")) if p))
     with open(log_path, "w") as log_f:
         p = subprocess.Popen(
-            [sys.executable, "-c", launch, *args], cwd=REPO, env=env,
+            [sys.executable, "-c", launch, *args], cwd=tree, env=env,
             stdout=log_f, stderr=subprocess.STDOUT)
     p.log_path = log_path
     return p
+
+
+def log_tails(work: str, lines: int = 30) -> None:
+    """The last `lines` lines of every process log under `work`, for a
+    failed phase whose directory is removed."""
+    import glob
+    for path in sorted(glob.glob(os.path.join(work, "*.log"))):
+        with open(path, errors="replace") as f:
+            tail = f.read().splitlines()[-lines:]
+        log(f"{os.path.basename(path)}:\n" + "\n".join(tail))
 
 
 def wait_for(pred, what: str, procs, timeout: float = 90.0):
@@ -2697,6 +2722,98 @@ def node_device_rows(murl: str, nodes, since: float, procs,
             return {n: counts(got[n]) for n in nodes}
         return None
     return wait_for(fresh, "fresh heartbeats on /cluster/device", procs)
+
+
+def inbound_flows(node: str) -> dict:
+    """{purpose: [bytes, requests]} a server took in, from its own
+    /debug/flows rows (`node` is its host:port)."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    out: dict = {}
+    for r in rpc.call(f"http://{node}/debug/flows", timeout=60.0)["rows"]:
+        if r["direction"] == "in" and r["local"] == node:
+            row = out.setdefault(r["purpose"], [0, 0])
+            row[0] += r["bytes"]
+            row[1] += r["ops"]
+    return out
+
+
+def flows_delta(before: dict, after: dict) -> dict:
+    """{purpose: [bytes, requests]} `after` adds over `before`."""
+    out = {}
+    for p, (b, n) in after.items():
+        b0, n0 = before.get(p, (0, 0))
+        if (b - b0, n - n0) != (0, 0):
+            out[p] = [b - b0, n - n0]
+    return out
+
+
+def answer_classes(node: str, subsystem: str) -> dict:
+    """{status class: requests} a server answered, from its /metrics
+    request histogram (SeaweedFS_<subsystem>_request_seconds)."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    text = rpc.call(f"http://{node}/metrics", timeout=60.0)
+    if isinstance(text, bytes):
+        text = text.decode()
+    out: dict = {}
+    for labels, v in re.findall(
+            rf"^SeaweedFS_{subsystem}_request_seconds_count\{{([^}}]*)\}} "
+            r"(\S+)$", text, re.M):
+        m = re.search(r'status="(\w+)"', labels)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + int(float(v))
+    return out
+
+
+def column_steps(shard_bytes: int, rows: int, budget: int) -> int:
+    """The pushes `ec.rebuild -batch` makes of one rebuilt shard: one
+    per column step of a volume whose `rows` (survivors read plus
+    shards rebuilt) do not fit `budget` whole, else one whole push."""
+    if shard_bytes * rows > budget and shard_bytes > MIB:
+        return -(-shard_bytes // max(MIB, budget // rows // MIB * MIB))
+    return 1
+
+
+def ecc_fragment_bytes(sids, shard_bytes: int) -> int:
+    """The body of one `/admin/ec/receive_ecc` push (cluster_encode's
+    _ecc_push_plan): the block CRCs of `sids`, shards of `shard_bytes`."""
+    nb = -(-shard_bytes // SMALL_BLOCK)
+    return len(json.dumps({"block": SMALL_BLOCK, "shards": {
+        str(s): ["0" * 8] * nb for s in sids}}).encode())
+
+
+def rebuild_pieces(lost: dict, shard_bytes: dict, placed: dict,
+                   before: dict, after: dict,
+                   budget: int = LIVE_REBUILD_BUDGET) -> dict:
+    """Per target of an `ec.rebuild -batch`: the `ec.scatter` requests
+    and bytes it took in (its /debug/flows rows `before` and `after`),
+    less the one `.ecc` fragment per volume the fused CRCs send, against
+    its rebuilt shards (`placed`: {(vid, sid): node}).  Fails when a
+    target took fewer shard requests than its shards' column steps, or
+    shard bytes other than the rebuilt shards' length."""
+    out = {}
+    for node in sorted(set(placed.values())):
+        mine = sorted(k for k, n in placed.items() if n == node)
+        got_b, got_n = flows_delta(before[node], after[node]).get(
+            "ec.scatter", [0, 0])
+        want_b = sum(shard_bytes[v] for v, _s in mine)
+        vols = sorted({v for v, _s in mine})
+        frag_b = sum(ecc_fragment_bytes(
+            [s for vv, s in mine if vv == v], shard_bytes[v]) for v in vols)
+        frags = len(vols) if got_b == want_b + frag_b else 0
+        need = sum(column_steps(shard_bytes[v], 10 + len(lost[v]), budget)
+                   for v, _s in mine)
+        row = {"shards": [f"{v}.{s}" for v, s in mine],
+               "shard_requests": got_n - frags, "column_steps": need,
+               "shard_bytes": got_b - (frag_b if frags else 0),
+               "rebuilt_bytes": want_b, "ecc_fragments": frags}
+        check(row["shard_bytes"] == want_b,
+              f"target {node} took {row['shard_bytes']} shard bytes for "
+              f"rebuilt shards of {want_b}: {row}")
+        check(row["shard_requests"] >= need,
+              f"target {node} took {row['shard_requests']} shard requests "
+              f"for {need} column steps of its rebuilt shards: {row}")
+        out[node] = row
+    return out
 
 
 def geometry_counts(doc: dict) -> dict:
@@ -2879,8 +2996,7 @@ def rebuild_launches(lost: dict, shard_bytes: dict,
         i = 0
         while i < len(sizes):
             if sizes[i] * rows > budget and sizes[i] > MIB:
-                cols = max(MIB, budget // rows // MIB * MIB)
-                n += -(-sizes[i] // cols)
+                n += column_steps(sizes[i], rows, budget)
                 i += 1
                 continue
             j, widest = i + 1, sizes[i]
@@ -3204,10 +3320,12 @@ def phase_live_cluster(torch, dev, args) -> dict:
         wait_for(lambda: victim not in {
             n["url"] for n in env.data_nodes()}, "the dead-node sweep",
             procs, timeout=120.0)
+        flows0 = {n: inbound_flows(n) for n in live}
         reset_counts()
         rows_here = device_counts(roofline.LEDGER.heartbeat_view())
         t0 = time.perf_counter()
-        msg = run_command(env, "ec.rebuild -batch")
+        msg = run_command(env, f"ec.rebuild -batch -maxBatchMB "
+                               f"{LIVE_REBUILD_BUDGET >> 20}")
         wall = time.perf_counter() - t0
         here = read_counts()
         rows_here2 = device_counts(roofline.LEDGER.heartbeat_view())
@@ -3220,11 +3338,13 @@ def phase_live_cluster(torch, dev, args) -> dict:
         out["gb_s"]["rebuild_batch"] = rebuilt_bytes / wall / 1e9
         n_steps = sum(c["launches"] for c in here.values())
         want = rebuild_launches(lost, {
-            v: os.path.getsize(f"{reference[v]['base']}.ec00") for v in vids})
+            v: os.path.getsize(f"{reference[v]['base']}.ec00") for v in vids},
+            LIVE_REBUILD_BUDGET)
         check(n_steps == want, f"rebuild launches {here}, expected {want}")
         check(rows_here2.get("batch_reconstruct", 0)
               - rows_here.get("batch_reconstruct", 0) == n_steps,
               "batch_reconstruct ledger rows != launches")
+        placed = {}
         for vid in vids:
             files = shard_files({n: dirs[n] for n in live}, vid)
             check(sorted(files) == list(range(14)),
@@ -3232,6 +3352,15 @@ def phase_live_cluster(torch, dev, args) -> dict:
             for sid in lost[vid]:
                 check(sha256_file(files[sid][1]) == lost_sha[(vid, sid)],
                       f"rebuilt shard {vid}.{sid} differs from its original")
+                placed[(vid, sid)] = files[sid][0]
+        # Each split volume's rebuilt shards arrive in as many pieces
+        # as it had column steps, read from the targets' own flow rows.
+        out["rebuild_pieces"] = rebuild_pieces(
+            lost, {v: os.path.getsize(f"{reference[v]['base']}.ec00")
+                   for v in vids}, placed, flows0,
+            {n: inbound_flows(n) for n in live}, LIVE_REBUILD_BUDGET)
+        log(f"live: rebuild pieces per target "
+            f"{json.dumps(out['rebuild_pieces'])}")
         rows4 = node_device_rows(murl, live, time.time(), procs)
         step = rows_delta(rows3, rows4)
         out["launches"]["rebuild_batch"] = {
@@ -4287,6 +4416,12 @@ def phase_ha_cluster(torch, dev, args) -> dict:
         term_now("holder_kill")
         out["rss_mib"][f"volume {victim} (killed)"] = \
             rss_mib(vs_procs[victim].pid)
+        # The leader's memory across its repair: it runs the batched
+        # rebuild in its own process, whose rebuilt pieces go out as
+        # each column step drains.
+        leader_pid = m_procs[leader].pid
+        leader_rss = {"before_mib": rss_mib(leader_pid)}
+        leader_rss["peak_mib"] = leader_rss["before_mib"]
         t_kill, wall_kill = time.perf_counter(), time.time()
         terms_kill = {u: st["raft"]["term"]
                       for u, st in master_roles(survivors).items()}
@@ -4339,6 +4474,8 @@ def phase_ha_cluster(torch, dev, args) -> dict:
             "volume_servers": vs_kernel_launches(step)}
 
         def repaired():
+            leader_rss["peak_mib"] = max(leader_rss["peak_mib"],
+                                         rss_mib(leader_pid))
             try:
                 locs = env.ec_shard_locations(vid)
             except rpc.RpcError as e:
@@ -4352,6 +4489,9 @@ def phase_ha_cluster(torch, dev, args) -> dict:
                           if any(u in live for u in us)) == list(range(14))
         wait_for(repaired, "the autopilot's EC rebuild", procs, timeout=600)
         out["repair_s_from_kill"] = time.perf_counter() - t_kill
+        leader_rss["after_mib"] = rss_mib(leader_pid)
+        out["leader_rss_across_repair"] = leader_rss
+        log(f"ha: the leader's RSS across its repair {json.dumps(leader_rss)}")
         # The control plane across the repair, failed or not: a moved
         # term or a live node's heartbeat.lost is the 404's window.
         out["masters_after_repair"] = {
@@ -4550,6 +4690,221 @@ def ha_runs(torch, dev, args, smi: str) -> int:
     print(smi)
     print(json.dumps({"ha_runs": args.ha_runs, "passed":
                       args.ha_runs - failed}))
+    return 1 if failed else 0
+
+
+# The wire measurement (--wire-mib): one volume through `ec.encode
+# -batch` and `ec.rebuild -batch` in a live cluster, in turns of two
+# checkouts of this repository.
+WIRE_NODES = 5
+WIRE_LOST = (1, 3, 9, 12)
+WIRE_BATCH_MB = 256  # ec.rebuild's -maxBatchMB default
+WIRE_SAMPLE_S = 0.05
+# A `weed shell` whose memory is read around its command: torch, the
+# card's context, the shell's modules and the batch mesh come up first,
+# then it prints its RSS (WIRE_BASE, kB).
+WIRE_SHELL = (
+    "import seaweedfs_tpu_torch.shell\n"
+    "from seaweedfs_tpu_torch.parallel import cluster_rebuild\n"
+    "cluster_rebuild.make_mesh()\n"
+    "with open('/proc/self/status') as _f:\n"
+    "    print('WIRE_BASE', next(int(x.split()[1]) for x in _f\n"
+    "                            if x.startswith('VmRSS:')), flush=True)\n")
+
+
+def wire_command(dev, tree: str, mport: int, command: str, log_path: str,
+                 servers: dict, procs) -> dict:
+    """One shell command of the wire measurement, in a WIRE_SHELL
+    process of `tree`: its wall, the shell's RSS growth over its command
+    (its largest RSS less its RSS once set up) and each volume server's
+    (over its RSS at the start), sampled every WIRE_SAMPLE_S, and each
+    server's `ec.scatter` requests and bytes in (`servers`: node ->
+    pid)."""
+    flows0 = {n: inbound_flows(n) for n in servers}
+    base = {n: rss_mib(pid) for n, pid in servers.items()}
+    peak = dict(base)
+    warm = "import torch\ntorch.zeros(1, device='cuda')\n" \
+        if dev.type == "cuda" else ""
+    p = port_process([
+        "shell", f"-device={dev.type}", f"-master=127.0.0.1:{mport}",
+        "lock", command], log_path, port_launch(dev, warm + WIRE_SHELL),
+        tree)
+    shell_peak = 0.0
+    t0 = time.perf_counter()
+    try:
+        while p.poll() is None:
+            for n, pid in servers.items():
+                peak[n] = max(peak[n], rss_mib(pid))
+            with contextlib.suppress(OSError, RuntimeError):
+                shell_peak = max(shell_peak, rss_mib(p.pid))
+            for q in procs:
+                check(q.poll() is None, f"{command}: a cluster process "
+                                        f"exited ({q.args[3:6]})")
+            check(time.perf_counter() - t0 < 1800, f"{command} hung")
+            time.sleep(WIRE_SAMPLE_S)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    check(p.returncode == 0, f"{command} exited {p.returncode}: "
+                             f"{text[-2000:]}")
+    m = re.search(r"^WIRE_BASE (\d+)$", text, re.M)
+    check(m is not None, f"{command}: no WIRE_BASE line: {text[-2000:]}")
+    pieces = {}
+    for n in servers:
+        b, k = flows_delta(flows0[n], inbound_flows(n)).get(
+            "ec.scatter", [0, 0])
+        if k:
+            pieces[n] = {"requests": k, "bytes": b}
+    return {"wall_s": wall,
+            "shell_rss_growth_mib": shell_peak - int(m.group(1)) / 1024,
+            "target_rss_growth_mib": {n: peak[n] - base[n]
+                                      for n in servers},
+            "max_target_rss_growth_mib": max(peak[n] - base[n]
+                                             for n in servers),
+            "ec_scatter_in": pieces, "output": text[-600:]}
+
+
+def wire_turn(dev, tree: str, src: str, work: str) -> dict:
+    """One turn of the wire measurement on `tree`'s package: a master
+    and WIRE_NODES volume servers (the first holding volume 1, a hard
+    link of `src`'s .dat and a copy of its .idx, from its start),
+    `ec.encode -volumeId 1 -batch`, WIRE_LOST deleted on their holders,
+    `ec.rebuild -volumeId 1 -batch`; every rebuilt shard's block CRCs
+    must equal the encode's `.ecc` entries of it."""
+    from seaweedfs_tpu_torch.cluster import rpc
+    from seaweedfs_tpu_torch.ec.integrity import file_block_crcs
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs: list = []
+    out: dict = {}
+    try:
+        mport = rpc.free_port()
+        murl = f"http://127.0.0.1:{mport}"
+        master = port_process(
+            ["master", f"-port={mport}", f"-mdir={work}/master",
+             f"-volumeSizeLimitMB={CLUSTER_SIZE_LIMIT_MB}",
+             "-defaultReplication=000"],
+            os.path.join(work, "master.log"), tree=tree)
+        procs.append(master)
+        wait_for(lambda: rpc.call(murl + "/dir/status", timeout=2.0),
+                 "the master", procs)
+        dirs, servers = {}, {}
+        for i in range(WIRE_NODES):
+            port = rpc.free_port()
+            node = f"127.0.0.1:{port}"
+            dirs[node] = os.path.join(work, f"vs{i}")
+            os.makedirs(dirs[node])
+            if i == 0:
+                os.link(src + ".dat", os.path.join(dirs[node], "1.dat"))
+                shutil.copyfile(src + ".idx",
+                                os.path.join(dirs[node], "1.idx"))
+            p = port_process(
+                ["volume", f"-device={dev.type}", f"-port={port}",
+                 f"-dir={dirs[node]}", "-max=7",
+                 f"-mserver=127.0.0.1:{mport}", f"-rack=rack{i % 2}"],
+                os.path.join(work, f"vs{i}.log"), tree=tree)
+            procs.append(p)
+            servers[node] = p.pid
+        wait_for(lambda: len(rpc.call_status(
+            murl + "/cluster/healthz", timeout=2.0)[1]["nodes"])
+            == WIRE_NODES and rpc.call(
+                murl + "/dir/lookup?volumeId=1", timeout=2.0).get(
+                "locations"), "the volume servers and volume 1", procs)
+        out["encode"] = wire_command(
+            dev, tree, mport, "ec.encode -volumeId 1 -batch",
+            os.path.join(work, "encode.log"), servers, procs)
+        files = shard_files(dirs, 1)
+        check(sorted(files) == list(range(14)),
+              f"shards after ec.encode: {sorted(files)}")
+        shard = os.path.getsize(files[0][1])
+        crcs = {sid: ecc_entries(path[:-5] + ".ecc")[sid]
+                for sid, (_n, path) in files.items()}
+        for sid in WIRE_LOST:
+            rpc.call_json(f"http://{files[sid][0]}/admin/ec/delete_shards",
+                          payload={"volume": 1, "shards": [sid]})
+        wait_for(lambda: not {str(s) for s in WIRE_LOST} & set(rpc.call(
+            murl + "/dir/lookup?volumeId=1", timeout=2.0).get(
+            "ecShards", {})), "the master to drop the lost shards", procs)
+        out["rebuild"] = wire_command(
+            dev, tree, mport,
+            f"ec.rebuild -volumeId 1 -batch -maxBatchMB {WIRE_BATCH_MB}",
+            os.path.join(work, "rebuild.log"), servers, procs)
+        files = shard_files(dirs, 1)
+        check(sorted(files) == list(range(14)),
+              f"shards after ec.rebuild: {sorted(files)}")
+        for sid in WIRE_LOST:
+            check([f"{c:08x}" for c in file_block_crcs(files[sid][1])]
+                  == crcs[sid], f"rebuilt shard {sid} differs from the "
+                                "encode's block CRCs")
+        out["shard_bytes"] = shard
+        out["disk_used_gib"] = shutil.disk_usage(work).used / 2 ** 30
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(15)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def wire_turns(torch, dev, args, smi: str) -> int:
+    """The wire measurement: one volume of --wire-mib MiB (written here
+    by write_volume) through `ec.encode -batch` and `ec.rebuild -batch`
+    in a live cluster, in turns of the checkout at --wire-parent and of
+    this one (parent, change, change, parent); one {"wire_turn": ...}
+    line per turn (wall, the shell's and the largest target's RSS
+    growth, the pieces each target took)."""
+    work = os.path.join(REPO, "_smoke_work", "wire")
+    shutil.rmtree(work, ignore_errors=True)
+    src = os.path.join(work, "src", "1")
+    os.makedirs(os.path.dirname(src))
+    t0 = time.perf_counter()
+    write_volume(src, args.wire_mib * MIB, args.seed + 140)
+    log(f"wire: a {args.wire_mib} MiB volume in "
+        f"{time.perf_counter() - t0:.1f} s")
+    trees = {"parent": os.path.abspath(args.wire_parent), "change": REPO}
+    try:
+        for i, name in enumerate(("parent", "change", "change", "parent")):
+            row = {"turn": i, "tree": name, "mib": args.wire_mib}
+            row.update(wire_turn(dev, trees[name], src,
+                                 os.path.join(work, f"turn{i}")))
+            print(json.dumps({"wire_turn": row}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(smi)
+    return 0
+
+
+def gateway_runs(torch, dev, args, smi: str) -> int:
+    """Phase 13 alone, `args.gateway_runs` times in a row: per run its
+    wall, whether it passed (else the failure's message) and each read
+    pass's launches, lost intervals and wire rows.  Exits 1 if any run
+    failed."""
+    failed = 0
+    for i in range(args.gateway_runs):
+        t0 = time.perf_counter()
+        row: dict = {"run": i, "small_div": args.gateway_small_div}
+        try:
+            with hooks("armed"):
+                gw = phase_gateway_cluster(torch, dev, args)
+            row.update(ok=True, launches=gw["launches"])
+        except Exception as e:  # noqa: BLE001 — counted, then reported
+            failed += 1
+            row.update(ok=False, error=f"{type(e).__name__}: {e}"[-6000:])
+        row["wall_s"] = time.perf_counter() - t0
+        print(json.dumps({"gateway_run": row}), flush=True)
+    print(smi)
+    print(json.dumps({"gateway_runs": args.gateway_runs, "passed":
+                      args.gateway_runs - failed}))
     return 1 if failed else 0
 
 
@@ -5214,12 +5569,13 @@ def plain_select(data: bytes, floor: int) -> bytes:
         for r in rows if float(r["score"]) > floor)
 
 
-def gateway_data(seed: int, limit_mb: int) -> dict:
+def gateway_data(seed: int, limit_mb: int, small_div: int = 1) -> dict:
     """The seeded data of phase 13, scaled by the volume limit over
     1024 MiB: S3 objects (large log-uniform GW_LARGE_RANGE, multipart
     uploads in GW_PART_MIB parts, small ones, CSV objects), WebDAV files
     two levels deep, the messages' count, the WFS file and the local
-    tree filer.copy uploads.  Payloads are slices of one random blob."""
+    tree filer.copy uploads.  Payloads are slices of one random blob.
+    `small_div` divides the small objects and the messages."""
     rng = np.random.default_rng(seed + 130)
     scale = limit_mb / 1024
     blob_bytes = GW_BLOB_MIB * MIB
@@ -5245,7 +5601,7 @@ def gateway_data(seed: int, limit_mb: int) -> dict:
         GW_MULTIPART_MIB // GW_PART_MIB)] for j in range(GW_MULTIPARTS)}
     lo, hi = GW_SMALL_RANGE
     small = {f"small/{j % 64:02d}/s{j:05d}.bin": sized(logu(lo, hi))
-             for j in range(max(int(GW_SMALL * scale), 100))}
+             for j in range(max(int(GW_SMALL * scale) // small_div, 100))}
     csv_size = min(GW_CSV_MIB * MIB, max(int(GW_CSV_MIB * MIB * scale),
                                          256 << 10)) - 4096
     csvs = {f"csv/c{j:02d}.csv": csv_object(rng, csv_size)
@@ -5268,7 +5624,8 @@ def gateway_data(seed: int, limit_mb: int) -> dict:
     rng.shuffle(wfs_blocks)
     return {"blob": blob, "large": large, "multipart": multipart,
             "small": small, "csv": csvs, "dav": dav, "dav_dirs": dirs,
-            "copy": copy, "messages": max(int(GW_MESSAGES * scale), 500),
+            "copy": copy,
+            "messages": max(int(GW_MESSAGES * scale) // small_div, 500),
             "wfs_size": wfs_size, "wfs_order": wfs_blocks,
             "wfs_base": int(rng.integers(blob_bytes - wfs_size))}
 
@@ -5516,7 +5873,11 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             return vs_kernel_launches(steps_rows[name])
 
         # -- 1. write: S3, WebDAV, the broker, the WFS file, filer.copy --
-        data = gateway_data(args.seed, limit_mb)
+        small_div = getattr(args, "gateway_small_div", 1)
+        if small_div > 1:
+            out["reduced"]["small_objects_and_messages_divided_by"] = \
+                small_div
+        data = gateway_data(args.seed, limit_mb, small_div)
         blob = data["blob"]
         acked: dict = {}  # filer path -> sha256 of what was acknowledged
         check(admin.call("PUT", f"/{GW_BUCKET}")[0] == 200,
@@ -5861,10 +6222,36 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
         def cache_doc():
             return rpc.call(furl + "/debug/cache?fids=1", timeout=60.0)
 
-        def degraded_pass(name, fids, items, work_fn, exact=True):
+        filer_node = furl.split("//")[1]
+
+        def wire_snapshot():
+            """Requests in by purpose, of the filer and of the survivors
+            together, and the survivors' answers by status class."""
+            vs_in: dict = {}
+            vs_ans: dict = {}
+            for n in live:
+                for p, (b, k) in inbound_flows(n).items():
+                    row = vs_in.setdefault(p, [0, 0])
+                    row[0] += b
+                    row[1] += k
+                for c, k in answer_classes(n, "volumeServer").items():
+                    vs_ans[c] = vs_ans.get(c, 0) + k
+            return {"volume_in": vs_in, "volume_answers": vs_ans,
+                    "filer_in": inbound_flows(filer_node)}
+
+        def wire_delta(a, b):
+            return {"volume_in": flows_delta(a["volume_in"], b["volume_in"]),
+                    "volume_answers": {
+                        c: k - a["volume_answers"].get(c, 0)
+                        for c, k in b["volume_answers"].items()
+                        if k != a["volume_answers"].get(c, 0)},
+                    "filer_in": flows_delta(a["filer_in"], b["filer_in"])}
+
+        def degraded_pass(name, fids, items, work_fn):
             """One gateway's read pass after the kill: K1 in the
             survivors from a beat after it, reconciled with the lost
-            intervals of the chunks it reads, less those the filer's
+            intervals of the chunks it reads (and of the GETs the
+            survivors took beyond those reads), less those the filer's
             chunk cache held before it."""
             before = cache_doc()
             resident = {f for f, _n in before["resident"]}
@@ -5875,8 +6262,12 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             # rebuilt at least once; a chunk read twice in the pass may
             # be a hit the second time.
             need_first = lost_intervals(evs, lost, set(fids) - resident)
+            wire0 = wire_snapshot()
             wall, lat = pool_run(items, work_fn, GW_WRITERS)
             after = cache_doc()
+            wire = wire_delta(wire0, wire_snapshot())
+            wire.update(chunk_reads=len(fids), chunks_read=len(set(fids)),
+                        chunks_uncached=len(set(fids) - resident))
             k1 = step_rows(name, live)
             hits = {"hit_bytes": after["chunk_cache"]["hit_bytes"]
                     - before["chunk_cache"]["hit_bytes"],
@@ -5885,16 +6276,29 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             out["launches"][name] = {"volume_servers": k1,
                                      "lost_intervals_read": need,
                                      "lost_intervals_uncached": need_first,
-                                     "chunk_cache": hits}
+                                     "chunk_cache": hits, "wire": wire}
             out["walls_s"][name] = wall
             check(set(steps_rows[name]) <= {"reconstruct_kernel"},
                   f"{name}: rows {steps_rows[name]}")
+            # A chunk the survivors were asked for more often than the
+            # pass reads it (a repeated or retried GET: the broker's tail
+            # reads ask for their segments' chunks again, 44 GETs for 16
+            # chunk reads at the halved data on an H100) is rebuilt
+            # again: count that work, at most the most lost intervals a
+            # chunk of the pass holds per repeated GET.
+            repeats = max(0, wire["volume_in"].get("proxy", [0, 0])[1]
+                          - len(fids))
+            most = max((lost_intervals(evs, lost, [f]) for f in set(fids)),
+                       default=0)
+            wire.update(repeated_gets=repeats,
+                        most_lost_intervals_per_chunk=most)
             lo_ok = k1["rs_bitmatrix"] >= need_first
-            hi_ok = not exact or k1["rs_bitmatrix"] <= need
+            hi_ok = k1["rs_bitmatrix"] <= need + repeats * most
             check(lo_ok and hi_ok,
                   f"{name}: {k1['rs_bitmatrix']} K1 in the survivors; the "
                   f"chunks read hold {need} lost intervals, {need_first} "
-                  f"on chunks the cache did not hold")
+                  f"on chunks the cache did not hold, {repeats} repeated "
+                  f"GETs of at most {most}; wire {wire}")
             check(need_first == 0 or k1["rs_bitmatrix"] > 0,
                   f"{name}: no K1 for {need_first} lost intervals of "
                   f"chunks the cache did not hold")
@@ -5953,8 +6357,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
                   f"range {lo_}-{hi_} of {k}: {status}")
 
         wall, lat = degraded_pass(
-            "s3_ranges", [f for r in ranges for f in r[3]], ranges, s3_range,
-            exact=True)
+            "s3_ranges", [f for r in ranges for f in r[3]], ranges, s3_range)
         out["s3_range_ms"] = {"p50": pct_ms(lat, 50), "p99": pct_ms(lat, 99),
                               "reads": len(lat)}
 
@@ -6011,8 +6414,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
 
         seg_fids = [f for p in seg_paths for f in chunks[p]]
         wall, _lat = degraded_pass("broker_consume", seg_fids,
-                                   range(GW_PARTITIONS), consume,
-                                   exact=False)
+                                   range(GW_PARTITIONS), consume)
         for p in range(GW_PARTITIONS):
             check(consumed[p] == sorted(published[p]),
                   f"partition {p}: {len(consumed[p])} messages read, "
@@ -6098,6 +6500,11 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             sum(v) for v in out["x4"]["k1_launches"].values())
         out["launch_totals"] = totals
         check(all(totals.values()), f"phase 13 launches {totals}")
+    except BaseException:
+        log(f"phase 13 failed with {mem_available() / 2 ** 30:.1f} GiB of "
+            f"memory available; its processes' logs:")
+        log_tails(work)
+        raise
     finally:
         for ev in evs.values():
             ev.close()
@@ -6521,6 +6928,19 @@ def main() -> int:
     ap.add_argument("--ha-runs", type=int, default=0,
                     help="only build, probe and run phase 11 this many "
                          "times, one {\"ha_run\": ...} line each")
+    ap.add_argument("--gateway-runs", type=int, default=0,
+                    help="only build, probe and run phase 13 this many "
+                         "times, one {\"gateway_run\": ...} line each")
+    ap.add_argument("--gateway-small-div", type=int, default=1,
+                    help="divide phase 13's small S3 objects and messages "
+                         "by this")
+    ap.add_argument("--wire-mib", type=int, default=0,
+                    help="only build, probe and run the wire measurement "
+                         "on a volume of this many MiB, one "
+                         "{\"wire_turn\": ...} line per turn")
+    ap.add_argument("--wire-parent", default="",
+                    help="the other checkout the wire measurement turns "
+                         "with")
     ap.add_argument("--main-only", action="store_true",
                     help="only build, probe and run phase 4, one "
                          "{\"main_path\": ...} line")
@@ -6552,6 +6972,10 @@ def main() -> int:
     probe = phase_probe(torch, dev)
     if args.ha_runs:
         return ha_runs(torch, dev, args, smi)
+    if args.gateway_runs:
+        return gateway_runs(torch, dev, args, smi)
+    if args.wire_mib:
+        return wire_turns(torch, dev, args, smi)
     if args.main_only:
         with hooks("armed"):
             main_path = phase_main_path(torch, dev, args)

@@ -55,6 +55,10 @@ from ..storage.volume import (CorruptNeedleError, DiskFullError,
 from ..trace import span as trace_span
 from . import rpc
 
+# receive_shard writes a pushed body to its temp file in reads of this
+# many bytes: a target holds one read buffer, whatever the shard size.
+_RECEIVE_READ = 4 << 20
+
 # How long a receive_ecc fragment may wait for its receive_shard before
 # it stops being trusted (see VolumeServer._ec_pending_ecc).  Scatter
 # pushes follow their fragment within seconds; minutes-old entries mean
@@ -159,6 +163,9 @@ class VolumeServer:
         self.ec_volumes: dict[int, EcVolume] = {}
         self._ec_recv_lock = threading.Lock()
         self._ec_recv_vlocks: dict[int, threading.Lock] = {}
+        # (vid, sid) -> the lock a shard's pieces take while they write
+        # its temp file.
+        self._ec_recv_slocks: dict[tuple[int, int], threading.Lock] = {}
         # vid -> {sid: (shipped_at, crcs)} entries that arrived via
         # receive_ecc and have not yet been claimed by their
         # receive_shard.  Kept SEPARATE from the on-disk .ecc sidecar:
@@ -255,7 +262,8 @@ class VolumeServer:
         s.route("GET", "/admin/ec/shard_read", self._ec_shard_read)
         s.route("GET", "/admin/ec/shard_file", self._ec_shard_file)
         s.route("POST", "/admin/ec/copy_shard", self._ec_copy_shard)
-        s.route("POST", "/admin/ec/receive_shard", self._ec_receive_shard)
+        s.route("POST", "/admin/ec/receive_shard", self._ec_receive_shard,
+                stream_body=True)
         s.route("POST", "/admin/ec/receive_file", self._ec_receive_file)
         s.route("POST", "/admin/ec/receive_ecc", self._ec_receive_ecc)
         s.route("POST", "/admin/ec/to_volume", self._ec_to_volume)
@@ -2644,27 +2652,80 @@ class VolumeServer:
                         pass
         return {}
 
-    def _ec_receive_shard(self, query: dict, body: bytes) -> dict:
+    def _ec_receive_shard(self, query: dict, body) -> dict:
         """Push-mode shard install: the batched mesh rebuild
         (parallel/cluster_rebuild.py) decodes centrally and scatters
-        rebuilt shards here — the inverse of copy_shard's pull.  Pulls
-        the .ecx/.vif sidecars from ?ecx_source= when absent so the
-        shard is servable once mounted."""
+        rebuilt shards here — the inverse of copy_shard's pull — and the
+        batched encode (parallel/cluster_encode.py) scatters its shards
+        the same way.
+
+        A push carries the whole shard, or one piece of it: `offset=`
+        is where the body lands in the shard and `size=`, on every
+        piece, the shard's full length.  Pieces come in order: the first
+        (offset 0) starts the temp file afresh, a later one may repeat
+        an earlier offset (a retried piece) but never leave a gap.  The
+        body streams to the temp file in bounded reads and is never held
+        whole.  The push that completes the shard (a whole push at once)
+        installs it: fsync, rename to `.ecNN`, its `.ecc` entries, then
+        the .ecx/.vif/.ecj sidecars pulled from ?ecx_source= when absent
+        so the shard is servable once mounted.  Until then the shard is
+        neither visible nor mountable."""
         vid = int(query["volume"])
         sid = int(query["shard"])
         base = self._volume_base(vid)
         if not 0 <= sid < self._ec_total_shards(vid, base):
             raise rpc.RpcError(400, f"bad shard id {sid}")
+        whole = "offset" not in query
+        try:
+            offset = 0 if whole else int(query["offset"])
+            size = None if whole else int(query["size"])
+        except (KeyError, ValueError):
+            raise rpc.RpcError(
+                400, "a shard piece needs integer offset= and size=") \
+                from None
+        if not whole and (offset < 0 or offset > size or (
+                body.length is not None and offset + body.length > size)):
+            raise rpc.RpcError(
+                400, f"piece [{offset}, +{body.length}) outside a shard of "
+                     f"{size} bytes")
         os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
         # Temp names must not collide with _volume_base's discovery
         # globs (`<vid>.ec*`) or concurrent receives would mis-derive
         # the base path from a half-written sibling.
         tmp = f"{base}.rcv{sid}.tmp"
-        with open(tmp, "wb") as f:
-            f.write(body)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, base + to_ext(sid))
+        with self._ec_recv_lock:
+            slock = self._ec_recv_slocks.setdefault(
+                (vid, sid), threading.Lock())
+        with slock:
+            if offset:
+                held = os.path.getsize(tmp) if os.path.exists(tmp) else 0
+                if offset > held:
+                    raise rpc.RpcError(
+                        409, f"piece at {offset} of shard {vid}.{sid}: "
+                             f"only {held} bytes received")
+            with open(tmp, "r+b" if offset else "wb") as f:
+                f.truncate(offset)
+                f.seek(offset)
+                n = 0
+                while True:
+                    buf = body.read(_RECEIVE_READ)
+                    if not buf:
+                        break
+                    f.write(buf)
+                    n += len(buf)
+                if whole:
+                    size = n
+                if offset + n > size:
+                    raise rpc.RpcError(
+                        400, f"piece [{offset}, +{n}) outside a shard of "
+                             f"{size} bytes")
+                if offset + n < size:
+                    return {"volume": vid, "shard": sid, "bytes": n,
+                            "offset": offset, "size": size,
+                            "complete": False}
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, base + to_ext(sid))
         # Per-volume serialization: the shared .ecc sidecar update is
         # load-modify-save, and concurrent receives for the same
         # volume must not lose each other's entries (receives for
@@ -2672,8 +2733,8 @@ class VolumeServer:
         with self._ec_recv_lock:
             vlock = self._ec_recv_vlocks.setdefault(
                 vid, threading.Lock())
-        from ..ec.integrity import (BlockCrcAccumulator,
-                                    ShardChecksums, ecc_lock)
+        from ..ec.integrity import (ShardChecksums, ecc_lock,
+                                    file_block_crcs)
         with self._ec_recv_lock:
             pend = self._ec_pending_ecc.get(vid, {}).pop(sid, None)
             if not self._ec_pending_ecc.get(vid):
@@ -2684,28 +2745,27 @@ class VolumeServer:
                             < _PENDING_ECC_TTL) else None
         with vlock, ecc_lock(base):
             ecc = ShardChecksums.load(base)
-            nblocks = -(-len(body) // ecc.block) if body else 0
+            nblocks = -(-size // ecc.block)
             if pend is not None and len(pend) == nblocks:
                 # The encoder shipped this shard's kernel-computed CRCs
                 # for THIS push (receive_ecc) — strictly better than
-                # fingerprinting the pushed body here: they describe
+                # fingerprinting the pushed bytes here: they describe
                 # the INTENDED bytes, so even wire corruption on the
                 # push itself is detectable by the first scrub.  Skip
-                # the CPU pass over the payload.  (receive_ecc already
+                # the CPU pass over the shard.  (receive_ecc already
                 # merged them into the sidecar; re-assert in case a
                 # concurrent writer dropped them.)
                 if ecc.get(sid) != pend:
                     ecc.set_shard(sid, pend)
                     ecc.save()
             else:
-                # Fingerprint the pushed bytes so the scrub can verify
-                # this shard from its first sweep (the body IS the
-                # intended content; ec/integrity.py).  This also
-                # OVERWRITES any stale sidecar entry a prior encode
-                # generation left behind.
-                acc = BlockCrcAccumulator(ecc.block)
-                acc.feed(body)
-                ecc.set_shard(sid, acc.finalize())
+                # Fingerprint the installed file so the scrub can
+                # verify this shard from its first sweep (the pushed
+                # bytes ARE the intended content; ec/integrity.py).
+                # This also OVERWRITES any stale sidecar entry a prior
+                # encode generation left behind.
+                ecc.set_shard(sid, file_block_crcs(base + to_ext(sid),
+                                                   ecc.block))
                 ecc.save()
         source = query.get("ecx_source", "")
         if source:
@@ -2724,7 +2784,10 @@ class VolumeServer:
                                 headers=_flows.tag("ec.gather"))
                         except (rpc.RpcError, OSError):
                             pass
-        return {"volume": vid, "shard": sid, "bytes": len(body)}
+        if whole:
+            return {"volume": vid, "shard": sid, "bytes": size}
+        return {"volume": vid, "shard": sid, "bytes": n, "offset": offset,
+                "size": size, "complete": True}
 
     def _ec_receive_file(self, query: dict, body: bytes) -> dict:
         """Push-mode sidecar install (.ecx/.vif): the batched mesh

@@ -14,7 +14,8 @@ wrap it:
   replica, pulls each `.dat`/`.idx` from a holder (`_fetch_volume`),
   encodes, then scatters the shards under a byte budget to a balanced
   placement, each holder's device `.ecc` fragment first
-  (`_ecc_push_plan`), mounts them and deletes the originals.
+  (`_ecc_push_plan`), a shard larger than a piece in pieces at its
+  offsets (`_scatter_shard`), mounts them and deletes the originals.
 
 The data path is streamed (stream_pipeline.py): a prefetch thread stacks
 the next chunk batch into a reusable host buffer — pinned, when the
@@ -393,9 +394,18 @@ def scatter_budget_bytes() -> int:
                               str(256 << 20)))
 
 
+def scatter_piece_bytes(budget: int) -> int:
+    """Width of one pushed piece of a shard larger than it: a quarter
+    of the scatter budget in whole `.ecc` blocks (at least one), so
+    four pushes fit in flight at once."""
+    return max(SMALL_BLOCK_SIZE,
+               budget // 4 // SMALL_BLOCK_SIZE * SMALL_BLOCK_SIZE)
+
+
 class _ByteBudget:
     """Blocking byte-count semaphore; a request larger than the cap is
-    clamped so a single huge shard can always proceed alone."""
+    clamped so it can always proceed alone (`_scatter_shard` never asks
+    for more than one piece)."""
 
     def __init__(self, cap: int):
         self.cap = max(1, cap)
@@ -649,23 +659,34 @@ def _ecc_push_plan(vid: int, entries) -> _EccOncePush:
 def _scatter_shard(url: str, vid: int, sid: int, path: str,
                    budget: _ByteBudget,
                    ecc_push: _EccOncePush | None = None) -> int:
-    """Push one encoded shard to its placement target.  The file is read
-    here, inside the budgeted worker, and `budget` caps total in-flight
-    bytes.  The fragment goes first, before budget is taken: workers
-    queued on a slow holder's fragment lock must wait empty-handed."""
+    """Push one encoded shard to its placement target: whole when it
+    fits in one piece (`scatter_piece_bytes`), else piece by piece in
+    order at its offsets (`receive_shard`'s `offset=`/`size=`).  Each
+    piece is read here, inside the budgeted worker, and `budget` caps
+    the total bytes in flight, a shard larger than the cap included.
+    The fragment goes first, before budget is taken: workers queued on
+    a slow holder's fragment lock must wait empty-handed."""
     if ecc_push is not None:
         ecc_push.ensure(url)
     size = os.path.getsize(path)
-    taken = budget.acquire(size)
-    try:
-        with open(path, "rb") as f:
-            payload = f.read()
-        if _fault.ARMED:
-            _fault.hit("ec.scatter", target=url, vid=vid, shard=sid)
-        rpc.call(f"http://{url}/admin/ec/receive_shard?"
-                 f"volume={vid}&shard={sid}", "POST", payload, 600.0,
-                 headers={**rpc.PRIORITY_LOW,
-                          **_flows.tag("ec.scatter")})
-        return size
-    finally:
-        budget.release(taken)
+    width = scatter_piece_bytes(budget.cap)
+    with open(path, "rb") as f:
+        for lo in range(0, max(size, 1), width):
+            n = min(width, size - lo)
+            taken = budget.acquire(n)
+            try:
+                payload = os.pread(f.fileno(), n, lo)
+                whole = n == size
+                if _fault.ARMED:
+                    _fault.hit("ec.scatter", target=url, vid=vid,
+                               shard=sid, **({} if whole
+                                             else {"offset": lo}))
+                piece = "" if whole else f"&offset={lo}&size={size}"
+                rpc.call(f"http://{url}/admin/ec/receive_shard?"
+                         f"volume={vid}&shard={sid}{piece}", "POST",
+                         payload, 600.0,
+                         headers={**rpc.PRIORITY_LOW,
+                                  **_flows.tag("ec.scatter")})
+            finally:
+                budget.release(taken)
+    return size

@@ -21,7 +21,9 @@ Its network half is `batch_rebuild`, the shell's `ec.rebuild -batch`:
 survivors, missing), `_fetch_shard` gathers survivors (whole, or a
 range) from their holders over HTTP with failover and deadlines, and
 `_scatter_volume` pushes the rebuilt shards (their device `.ecc`
-fragments first) to balanced targets (`_TargetPicker`) and mounts them.
+fragments first) to balanced targets (`_TargetPicker`) and mounts them:
+a volume that fits in one step whole, a split one piece by piece as
+each column step drains (`receive_shard`'s `offset=`/`size=`).
 
 Every volume of a group shares a codec and lost the same shards, so one
 decode matrix covers the group.  Every step stacks at most
@@ -289,6 +291,9 @@ def rebuild_group(codec: Codec, present, missing, vids, shard_size,
             for v, rows in enumerate(fetched):
                 for r, row in enumerate(rows):
                     view[v, r, :len(row)] = np.frombuffer(row, np.uint8)
+            # Stacked: the gathered rows go now, not when the next
+            # step's gather replaces them.
+            del fetched, rows, row
             t_gend = time.perf_counter()
             observe_batch_stage(stages, "batch_gather", t_gend - t_gather,
                                 gathered)
@@ -627,27 +632,25 @@ def _rebuild_group(env, mesh, pool, picker, codec, present, missing,
         def fetch_rows(vid, used, span):
             return _fetch_rows(pool, vid, locs_of[vid], used, span)
 
-        # A split volume's rebuilt shards collect here, one host buffer
-        # per lost shard, and are pushed whole after its last step: the
-        # push protocol stays whole-shard, and the host holds the
-        # output, not the survivors.
-        pieces: dict[int, list[np.ndarray]] = {}
+        # Each volume's targets, picked at its first piece.
+        targets: dict[int, list[tuple[int, str]]] = {}
 
         def place(vid, missing, lo, shards, last, crcs):
-            if lo == 0 and last:
-                payloads = [np.ascontiguousarray(s).tobytes()
-                            for s in shards]
-            else:
-                bufs = pieces.setdefault(vid, [
-                    np.empty(sizes[vid], np.uint8) for _ in missing])
-                for buf, s in zip(bufs, shards):
-                    buf[lo:lo + len(s)] = s
-                if not last:
-                    return None
-                payloads = [memoryview(b) for b in pieces.pop(vid)]
+            # A volume that fits in one step is pushed whole; a split
+            # one goes piece by piece at its offsets as each column step
+            # drains, so the host holds one step's output, not the
+            # volume's.
+            if lo == 0:
+                targets[vid] = _pick_targets(picker, locs_of[vid], missing)
             placed = _scatter_volume(
-                env, pool, picker, vid, locs_of[vid], missing, payloads,
-                shard_crcs=crcs)
+                env, pool, vid, locs_of[vid], targets[vid],
+                [memoryview(np.ascontiguousarray(s)) for s in shards],
+                shard_crcs=crcs,
+                piece=None if lo == 0 and last else (lo, sizes[vid]),
+                last=last)
+            if not last:
+                return None
+            del targets[vid]
             return " -> " + ", ".join(f"{s}@{u}" for s, u in placed)
 
         try:
@@ -680,24 +683,30 @@ def _fetch_rows(pool, vid, locs, used, span=None) -> list[bytes]:
     return [f.result() for f in futs]
 
 
-def _push_shard(vid: int, sid: int, payload: bytes, target: str,
-                sources: list[str], ecc_push=None) -> None:
-    """Push one rebuilt shard; the target pulls the .ecx index from a
-    source holder, so fail over across sources — a stale entry in the
-    location map must not sink the scatter."""
+def _push_shard(vid: int, sid: int, payload, target: str,
+                sources: list[str], ecc_push=None,
+                piece: tuple[int, int] | None = None) -> None:
+    """Push one rebuilt shard, or with `piece` = (offset, shard size)
+    its bytes at that offset; the target pulls the .ecx index from a
+    source holder once the shard is complete, so fail over across
+    sources — a stale entry in the location map must not sink the
+    scatter."""
     if ecc_push is not None:
-        # The target's device `.ecc` entries land before the first shard
-        # body, once per target, inside this worker (_EccOncePush).
+        # The target's device `.ecc` entries land before the push that
+        # completes a shard, once per target, inside this worker
+        # (_EccOncePush).
         ecc_push.ensure(target)
     errors: list[str] = []
     for src in sources:
         try:
             if _fault.ARMED:
                 _fault.hit("ec.scatter", target=target, vid=vid,
-                           shard=sid)
+                           shard=sid, **({"offset": piece[0]} if piece
+                                         else {}))
             rpc.call(
                 f"http://{target}/admin/ec/receive_shard?volume={vid}"
-                f"&shard={sid}&ecx_source={src}",
+                f"&shard={sid}&ecx_source={src}"
+                + (f"&offset={piece[0]}&size={piece[1]}" if piece else ""),
                 "POST", payload, 600.0,
                 headers={**rpc.PRIORITY_LOW,
                          **_flows.tag("ec.scatter")})
@@ -718,16 +727,25 @@ def _push_shard(vid: int, sid: int, payload: bytes, target: str,
              + "; ".join(errors[:4]))
 
 
-def _scatter_volume(env, pool, picker, vid, locs, missing,
-                    shards: list,
-                    shard_crcs=None) -> list[tuple[int, str]]:
-    """Push rebuilt shards to balanced targets, each pulling the .ecx
-    index alongside, then mount.  With `shard_crcs` (the device's
-    per-block CRC32-C of each rebuilt shard) the target gets its `.ecc`
-    entries first, so receive_shard skips its CPU pass over the body."""
+def _pick_targets(picker, locs, missing) -> list[tuple[int, str]]:
+    """A balanced target for each lost shard of one volume."""
     holders = {u for urls in locs.values() for u in urls}
-    sources = sorted(holders)
-    placed = [(sid, picker.pick(holders)) for sid in missing]
+    return [(sid, picker.pick(holders)) for sid in missing]
+
+
+def _scatter_volume(env, pool, vid, locs, placed, shards: list,
+                    shard_crcs=None, piece: tuple[int, int] | None = None,
+                    last: bool = True) -> list[tuple[int, str]]:
+    """Push rebuilt shards to their targets `placed` in parallel, each
+    pulling the .ecx index alongside: the whole shards, or with `piece`
+    = (lo, shard size) one column step's bytes [lo, lo + width) of
+    each.  The shards are mounted after the `last` push.  With
+    `shard_crcs` (the device's per-block CRC32-C of each rebuilt shard,
+    known at the last push) the target gets its `.ecc` entries first,
+    so receive_shard skips its CPU pass over the shard.  A failed piece
+    fails the volume: a retry of the rebuild starts each shard again at
+    offset 0."""
+    sources = sorted({u for urls in locs.values() for u in urls})
     pusher = None
     if shard_crcs is not None:
         from .cluster_encode import _ecc_push_plan
@@ -735,10 +753,11 @@ def _scatter_volume(env, pool, picker, vid, locs, missing,
             vid, ((target, sid, crcs)
                   for (sid, target), crcs in zip(placed, shard_crcs)))
     futs = [pool.submit(_push_shard, vid, sid, payload, target,
-                        sources, pusher)
+                        sources, pusher, piece)
             for (sid, target), payload in zip(placed, shards)]
     for f in futs:
         f.result()
-    for _sid, target in placed:
-        env.vs_call(target, "/admin/ec/mount", {"volume": vid})
+    if last:
+        for _sid, target in placed:
+            env.vs_call(target, "/admin/ec/mount", {"volume": vid})
     return placed

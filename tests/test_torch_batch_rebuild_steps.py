@@ -218,7 +218,9 @@ def _encode_and_spread(cluster, vid: int) -> None:
 def test_wire_column_steps_equal_unsplit_rebuild(tmp_path, monkeypatch):
     """`ec.rebuild -batch`'s `batch_rebuild` over a live port cluster:
     survivors gathered by range (`/admin/ec/shard_read`), each split
-    volume's rebuilt shards pushed whole after its last step."""
+    volume's rebuilt shards pushed piece by piece at their offsets as
+    each column step drains (tests/test_torch_wire_pieces.py pins the
+    pieces)."""
     monkeypatch.setenv("SEAWEEDFS_TPU_EC_FUSED_CRC", "1")
     cluster = LiveCluster(PORT, tmp_path / "cluster")
     try:
