@@ -322,6 +322,13 @@ Phases; any failure raises and the script exits non-zero:
              device) run all_to_all_reconstruct and ring_reconstruct on
              seeded (2, 10, 64 MiB) survivors of 4 lost shards, each rank's
              K1 on the card, and must equal batched_reconstruct's answer.
+             Every process of the phase writes an `RPC-FAIL` line (its
+             pid, the method and URL) for each call of the port's client
+             that meets a closed connection or times out, counted per
+             process in `rpc_fails`, and its threads' stacks on SIGUSR1:
+             a failed phase prints those lines and every live process's
+             stacks before the log tails, and so does a `filer.copy`
+             still running after 30 s.
 
 Phase 6 runs before phase 8, phase 8 before phase 9, phase 9 before phase
 10, phase 10 before phase 11, phase 11 before phase 12, phase 12 before
@@ -615,6 +622,76 @@ MASTER_LAUNCH = (
     "    sys.modules[name] = None\n"
     "runpy.run_module('seaweedfs_tpu_torch', run_name='__main__',"
     " alter_sys=True)\n")
+
+# The calls of this process that met a closed connection or timed out
+# (`watch_rpc`), one line each.
+RPC_FAILS: list[str] = []
+
+
+def watch_rpc(rpc, say) -> None:
+    """Report, through say(line), every call of the port's client (`rpc`)
+    that meets a closed connection or times out: the process, the method
+    and the URL, before the error goes on to the caller."""
+    inner = rpc._request
+    if getattr(inner, "watched", False):
+        return
+
+    def _request(url, method, *a, **kw):
+        try:
+            return inner(url, method, *a, **kw)
+        except (ConnectionResetError, BrokenPipeError, TimeoutError) as e:
+            say(f"RPC-FAIL pid {os.getpid()}: {method} {url}: "
+                f"{type(e).__name__}: {e}")
+            raise
+
+    _request.watched = True
+    rpc._request = _request
+
+
+def gateway_launch() -> str:
+    """MASTER_LAUNCH for phase 13's processes, which also write every
+    thread's stack to their log on SIGUSR1 (`dump_stacks`) and an
+    `RPC-FAIL` line for each call that meets a closed connection or
+    times out (`watch_rpc`)."""
+    import inspect
+    blocked, run = MASTER_LAUNCH.split("runpy.run_module")
+    return ("import faulthandler, os, signal\n"
+            "faulthandler.register(signal.SIGUSR1, all_threads=True)\n"
+            + blocked + inspect.getsource(watch_rpc) +
+            "from seaweedfs_tpu_torch.cluster import rpc\n"
+            "watch_rpc(rpc, lambda m: print(m, file=sys.stderr, flush=True))\n"
+            "runpy.run_module" + run)
+
+
+def dump_stacks(procs, why: str) -> None:
+    """SIGUSR1 to each live process of `procs` started with
+    gateway_launch(); print the stacks each writes to its log."""
+    import signal
+    marks = {}
+    for p in procs:
+        if p.poll() is None and "SIGUSR1" in getattr(p, "launch", ""):
+            marks[p] = os.path.getsize(p.log_path)
+            os.kill(p.pid, signal.SIGUSR1)
+    time.sleep(1.0)
+    for p, at in marks.items():
+        with open(p.log_path, "rb") as f:
+            f.seek(at)
+            text = f.read().decode(errors="replace")
+        log(f"{why}: the stacks of {os.path.basename(p.log_path)} (pid "
+            f"{p.pid}):\n{text[-30000:]}")
+
+
+def rpc_fail_lines(work: str) -> dict:
+    """The `RPC-FAIL` lines of every process log under `work`."""
+    import glob
+    out = {}
+    for path in sorted(glob.glob(os.path.join(work, "*.log"))):
+        with open(path, errors="replace") as f:
+            lines = [s for s in f.read().splitlines()
+                     if s.startswith("RPC-FAIL ")]
+        if lines:
+            out[os.path.basename(path)] = lines
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2669,6 +2746,7 @@ def port_process(args: list[str], log_path: str,
             [sys.executable, "-c", launch, *args], cwd=tree, env=env,
             stdout=log_f, stderr=subprocess.STDOUT)
     p.log_path = log_path
+    p.launch = launch
     return p
 
 
@@ -3766,10 +3844,13 @@ def the_leader(urls: list[str]) -> str | None:
 
 
 def run_port(args: list[str], log_path: str, launch: str, procs,
-             timeout: float = 600.0) -> tuple[str, float, float]:
+             timeout: float = 600.0,
+             stall: float | None = None) -> tuple[str, float, float]:
     """A short-lived `python -m seaweedfs_tpu_torch` process (shell,
     backup, fix, export, benchmark) run to its end: its output, wall
-    and RSS sampled while it runs.  Fails on a non-zero exit."""
+    and RSS sampled while it runs.  Fails on a non-zero exit.  With
+    `stall`, a process still running after that many seconds has its
+    and every cluster process's stacks printed once (`dump_stacks`)."""
     t0 = time.perf_counter()
     p = port_process(args, log_path, launch)
     rss = 0.0
@@ -3782,6 +3863,10 @@ def run_port(args: list[str], log_path: str, launch: str, procs,
                                         f"exited ({q.args[3:6]})")
             check(time.perf_counter() - t0 < timeout,
                   f"{' '.join(args[:3])} hung")
+            if stall is not None and time.perf_counter() - t0 > stall:
+                dump_stacks([p, *procs],
+                            f"{args[0]} still running after {stall} s")
+                stall = None
             time.sleep(0.1)
     finally:
         if p.poll() is None:
@@ -4886,9 +4971,10 @@ def wire_turns(torch, dev, args, smi: str) -> int:
 
 def gateway_runs(torch, dev, args, smi: str) -> int:
     """Phase 13 alone, `args.gateway_runs` times in a row: per run its
-    wall, whether it passed (else the failure's message) and each read
-    pass's launches, lost intervals and wire rows.  Exits 1 if any run
-    failed."""
+    wall, whether it passed (else the failure's message), each read
+    pass's launches, lost intervals and wire rows, the calls per process
+    that met a closed connection or timed out, and the walls of
+    `filer.copy` and `volume.fsck`.  Exits 1 if any run failed."""
     failed = 0
     for i in range(args.gateway_runs):
         t0 = time.perf_counter()
@@ -4896,7 +4982,10 @@ def gateway_runs(torch, dev, args, smi: str) -> int:
         try:
             with hooks("armed"):
                 gw = phase_gateway_cluster(torch, dev, args)
-            row.update(ok=True, launches=gw["launches"])
+            row.update(ok=True, launches=gw["launches"],
+                       rpc_fails=gw["rpc_fails"],
+                       filer_copy_s=gw["walls_s"]["filer_copy"],
+                       fsck_s=gw["walls_s"]["fsck"])
         except Exception as e:  # noqa: BLE001 — counted, then reported
             failed += 1
             row.update(ok=False, error=f"{type(e).__name__}: {e}"[-6000:])
@@ -5776,6 +5865,9 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
     from seaweedfs_tpu_torch.storage import chunk_cache
 
     t_phase = time.perf_counter()
+    launch = gateway_launch()
+    watch_rpc(rpc, RPC_FAILS.append)
+    fails_before = len(RPC_FAILS)
     limit_mb = args.gateway_mib
     limit = limit_mb * MIB
     work = os.path.join(REPO, "_smoke_work", "gateway")
@@ -5803,7 +5895,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             ["master", f"-port={ports['master']}", f"-mdir={work}/master",
              f"-volumeSizeLimitMB={limit_mb}",
              f"-defaultReplication={GW_REPLICATION}"],
-            os.path.join(work, "master.log"))
+            os.path.join(work, "master.log"), launch)
         procs.append(master)
         wait_for(lambda: rpc.call(murl + "/dir/status", timeout=2.0),
                  "the master", procs)
@@ -5819,13 +5911,13 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
                  f"-max={GW_MAX_VOLUMES}",
                  f"-mserver=127.0.0.1:{ports['master']}", "-dataCenter=dc1",
                  f"-rack=rack{i * GW_RACKS // GW_NODES}"],
-                os.path.join(work, f"vs{i}.log"))
+                os.path.join(work, f"vs{i}.log"), launch)
             procs.append(vs_procs[node])
         filer = port_process(
             ["filer", f"-port={ports['filer']}",
              f"-master=127.0.0.1:{ports['master']}", f"-dir={work}/filer",
              f"-collection={GW_COLLECTION}"],
-            os.path.join(work, "filer.log"))
+            os.path.join(work, "filer.log"), launch)
         procs.append(filer)
         wait_for(lambda: len(rpc.call_status(
             murl + "/cluster/healthz", timeout=2.0)[1]["nodes"])
@@ -5847,7 +5939,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
                        f"-filer=127.0.0.1:{ports['filer']}"],
             "broker": ["msg.broker", f"-port={ports['broker']}",
                        f"-filer=127.0.0.1:{ports['filer']}"]}
-        gw = {r: port_process(a, os.path.join(work, f"{r}.log"))
+        gw = {r: port_process(a, os.path.join(work, f"{r}.log"), launch)
               for r, a in gw_args.items()}
         procs.extend(gw.values())
         wait_for(lambda: rpc.call_status(s3url + "/", timeout=2.0)[0]
@@ -6026,7 +6118,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
         text, wall, _rss = run_port(
             ["filer.copy", f"-filer=127.0.0.1:{ports['filer']}", src,
              "/copied/"], os.path.join(work, "filer-copy.log"),
-            MASTER_LAUNCH, procs)
+            launch, procs, stall=30.0)
         check(f"copied {len(data['copy'])} files" in text,
               f"filer.copy: {text[-500:]}")
         out["walls_s"]["filer_copy"] = wall
@@ -6172,7 +6264,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
         shell_out, wall, _rss = run_port(
             ["shell", dev_flag, f"-master=127.0.0.1:{ports['master']}",
              "lock", "ec.encode -volumeId " + ",".join(map(str, vids))],
-            os.path.join(work, "shell-encode.log"), MASTER_LAUNCH, procs)
+            os.path.join(work, "shell-encode.log"), launch, procs)
         for v in vids:
             check(f"volume {v} -> ec shards" in shell_out,
                   f"shell ec.encode: {shell_out[-2000:]}")
@@ -6393,7 +6485,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
         gw["broker"] = port_process(
             ["msg.broker", f"-port={ports['broker']}",
              f"-filer=127.0.0.1:{ports['filer']}"],
-            os.path.join(work, "broker2.log"))
+            os.path.join(work, "broker2.log"), launch)
         procs.append(gw["broker"])
         wait_for(lambda: rpc.call(burl + "/status", timeout=2.0),
                  "the restarted broker", procs)
@@ -6449,7 +6541,7 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             text, _w, _r = run_port(
                 ["filer.replicate", f"-filer=127.0.0.1:{ports['filer']}",
                  "-source.dir=/copied", f"-sink=local://{sink}", "-once"],
-                os.path.join(work, "filer-replicate.log"), MASTER_LAUNCH,
+                os.path.join(work, "filer-replicate.log"), launch,
                 procs)
             for p in copy_paths:
                 local = os.path.join(sink, p[len("/copied/"):])
@@ -6500,9 +6592,22 @@ def phase_gateway_cluster(torch, dev, args) -> dict:
             sum(v) for v in out["x4"]["k1_launches"].values())
         out["launch_totals"] = totals
         check(all(totals.values()), f"phase 13 launches {totals}")
+        # Each process's calls that met a closed connection or timed
+        # out, counted from the `RPC-FAIL` lines.
+        out["rpc_fails"] = {"chip_smoke": len(RPC_FAILS) - fails_before,
+                            **{name: len(lines) for name, lines in
+                               rpc_fail_lines(work).items()}}
     except BaseException:
         log(f"phase 13 failed with {mem_available() / 2 ** 30:.1f} GiB of "
-            f"memory available; its processes' logs:")
+            f"memory available; the calls that met a closed connection "
+            f"or timed out, by process:")
+        for line in RPC_FAILS[fails_before:]:
+            log(f"chip_smoke: {line}")
+        for name, lines in rpc_fail_lines(work).items():
+            for line in lines:
+                log(f"{name}: {line}")
+        dump_stacks(procs, "phase 13 failed")
+        log("its processes' logs:")
         log_tails(work)
         raise
     finally:

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import select
 import socket
 import struct
 import threading
@@ -1741,8 +1742,17 @@ class _ConnPool:
         self.gen = 0
 
     def acquire(self, scheme: str, host: str, port: int,
-                timeout: float):
-        """Returns (conn, was_reused).
+                timeout: float, fresh: bool = False):
+        """Returns (conn, was_reused).  `fresh` skips the idle pool and
+        dials a new connection.
+
+        An idle connection is handed out only while its server still
+        holds it open: servers close idle keep-alive connections after
+        one shared idle timeout (and all of them when they stop), so the
+        pool's connections to a host tend to die together.  A socket
+        that is readable while idle has the server's FIN (or stray
+        bytes) waiting, and is closed instead; one zero-timeout poll per
+        reuse, outside the pool lock.
 
         Client sockets keep Python-level settimeout (NOT the server's
         SO_RCVTIMEO trick): with a kernel timeout, a slow server is
@@ -1773,18 +1783,24 @@ class _ConnPool:
             except Exception:
                 breaker.record_failure()
                 raise
-        with self._lock:
-            pool = self._idle.get(key)
-            if pool:
+        while True:
+            with self._lock:
+                pool = None if fresh else self._idle.get(key)
+                if not pool:
+                    # Snapshot the TLS plane atomically with its
+                    # generation: if a rotation lands during our
+                    # handshake below, this conn keeps the OLD gen and
+                    # release() will drop it.
+                    ctx, gen = _client_ssl_context, self.gen
+                    break
                 conn = pool.pop()
-                if conn.timeout != timeout:
-                    conn.sock.settimeout(timeout)
-                    conn.timeout = timeout
-                return conn, True
-            # Snapshot the TLS plane atomically with its generation:
-            # if a rotation lands during our handshake below, this
-            # conn keeps the OLD gen and release() will drop it.
-            ctx, gen = _client_ssl_context, self.gen
+            if _peer_closed(conn):
+                conn.close()
+                continue
+            if conn.timeout != timeout:
+                conn.sock.settimeout(timeout)
+                conn.timeout = timeout
+            return conn, True
         try:
             sock = socket.create_connection((host, port),
                                             timeout=timeout)
@@ -1810,6 +1826,15 @@ class _ConnPool:
         conn.close()
 
 
+def _peer_closed(conn: _Conn) -> bool:
+    """True when an idle connection has something to read: the server's
+    FIN, a reset, or bytes no request asked for.  Either way it cannot
+    carry the next request."""
+    p = select.poll()
+    p.register(conn.sock, select.POLLIN)
+    return bool(p.poll(0))
+
+
 _pool = _ConnPool()
 
 
@@ -1817,7 +1842,8 @@ def _request(url: str, method: str, body, timeout: float,
              max_redirects: int = 3, req_headers: dict | None = None):
     """One pooled request; returns (_Resp, _Conn) with the body NOT yet
     read (callers stream or read()).  Retries exactly once on a stale
-    reused keep-alive connection (failure before any response bytes)."""
+    reused keep-alive connection (failure before any response bytes),
+    on a new connection."""
     # Trace-context propagation: every outbound hop carries the active
     # span's traceparent so the downstream server span links to it.  An
     # explicit header wins — fan-out paths that run on worker threads
@@ -1905,7 +1931,11 @@ def _request(url: str, method: str, body, timeout: float,
     if body:
         req += body
     for attempt in (0, 1):
-        conn, reused = _pool.acquire(scheme, host, port, timeout)
+        # The retry dials: any other idle connection to this host went
+        # idle as long as the one that failed, and the server's idle
+        # timeout closes them alike.
+        conn, reused = _pool.acquire(scheme, host, port, timeout,
+                                     fresh=attempt > 0)
         try:
             # Fault points fire INSIDE the retry loop's try: an armed
             # `fail` surfaces as a peer reset and takes the exact
