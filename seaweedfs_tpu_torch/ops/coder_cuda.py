@@ -66,7 +66,7 @@ from .erasure import host_array, resolve_device
 BLOCK_N = 4096
 
 # Column group the plain versions work through at a time, which bounds
-# their float32 intermediates to a few times the input.
+# their int64 table indices to eight times the input.
 _PLAIN_COLS = 1 << 18
 
 # Shapes (in_rows, out_rows) with an instantiation of their own: fully
@@ -191,12 +191,39 @@ def _unpack_words(words: torch.Tensor) -> torch.Tensor:
         .to(torch.float32)
 
 
-def _pack_planes(pbits: torch.Tensor, rows: int) -> torch.Tensor:
-    """(8*rows, n) plane-major 0/1 int32 -> (rows, n) uint8."""
-    out = pbits[0:rows]
-    for s in range(1, 8):
-        out = out | (pbits[s * rows:(s + 1) * rows] << s)
-    return out.to(torch.uint8)
+def _to_int32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> int32 words with the same bits."""
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def _byte_images(bit_images: torch.Tensor) -> torch.Tensor:
+    """(8, ...) images of the bytes 1 << b under a GF(2)-linear map ->
+    (256, ...) images of every byte, each the XOR of its bits' images."""
+    out = torch.zeros((256, *bit_images.shape[1:]), dtype=bit_images.dtype,
+                      device=bit_images.device)
+    for b in range(8):
+        out[1 << b:2 << b] = out[:1 << b] ^ bit_images[b]
+    return out
+
+
+def _xor_first(t: torch.Tensor) -> torch.Tensor:
+    """XOR over the first axis."""
+    acc = t[0]
+    for row in t[1:]:
+        acc = acc ^ row
+    return acc
+
+
+def _xor_last(t: torch.Tensor) -> torch.Tensor:
+    """XOR over the last axis, halving it at each step."""
+    while t.shape[-1] > 1:
+        h = t.shape[-1] // 2
+        folded = t[..., :h] ^ t[..., h:2 * h]
+        if t.shape[-1] % 2:
+            folded[..., :1] ^= t[..., 2 * h:]
+        t = folded
+    return t[..., 0]
 
 
 # ---------------------------------------------------------------------------
@@ -205,30 +232,31 @@ def _pack_planes(pbits: torch.Tensor, rows: int) -> torch.Tensor:
 
 def apply_bitmatrix_torch(masks: torch.Tensor,
                           shards: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: unpack one bit plane at a time, float32
-    matmul (sums <= 8k are exact), &1, pack.  TF32 is switched off for
-    the call, so the product is exact on a CUDA device too.  A (V, k, n)
-    input is taken one volume at a time."""
+    """K1's plain version.  The product is GF(2)-linear in every input
+    byte: output byte i is the XOR over input rows j of T[i, j][byte of
+    row j], where T[i, j] is the (i, j) 8x8 block of the bit matrix
+    applied to each of the 256 byte values (built from the masks in
+    eight XOR steps).  A (V, k, n) input is taken one volume at a
+    time."""
     if shards.dim() == 3:
         return torch.stack([apply_bitmatrix_torch(masks, s) for s in shards])
     out_rows, in_rows = masks.shape[0] // 8, masks.shape[1]
     n = shards.shape[1]
-    bmat = unpack_bitmatrix(masks).to(torch.float32)
-    out = torch.empty((out_rows, n), dtype=torch.uint8, device=shards.device)
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        for c0 in range(0, n, _PLAIN_COLS):
-            x = shards[:, c0:c0 + _PLAIN_COLS].to(torch.int32)
-            acc = torch.zeros((8 * out_rows, x.shape[1]),
-                              dtype=torch.float32, device=shards.device)
-            for s in range(8):
-                acc += bmat[:, s * in_rows:(s + 1) * in_rows] \
-                    @ ((x >> s) & 1).to(torch.float32)
-            out[:, c0:c0 + x.shape[1]] = _pack_planes(
-                acc.to(torch.int32) & 1, out_rows)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    dev = shards.device
+    # bits[t, i, s, j]: bit t of output row i from bit s of input row j
+    bits = unpack_bitmatrix(masks).to(device=dev, dtype=torch.int32) \
+        .reshape(8, out_rows, 8, in_rows)
+    images = (bits << torch.arange(8, device=dev)[:, None, None, None]) \
+        .sum(0).permute(1, 0, 2).to(torch.uint8)            # (s, i, j)
+    tables = _byte_images(images).permute(1, 2, 0) \
+        .reshape(out_rows, in_rows * 256)                  # [i, j*256 + v]
+    base = (torch.arange(in_rows, device=dev) * 256)[:, None]
+    out = torch.empty((out_rows, n), dtype=torch.uint8, device=dev)
+    for c0 in range(0, n, _PLAIN_COLS):
+        idx = shards[:, c0:c0 + _PLAIN_COLS].to(torch.int64) + base
+        for i in range(out_rows):
+            out[i, c0:c0 + idx.shape[1]] = _xor_first(
+                torch.take(tables[i], idx))
     return out
 
 
@@ -236,11 +264,14 @@ def apply_bitmatrix_crc_torch(masks: torch.Tensor, shards: torch.Tensor,
                               w0: torch.Tensor, plane_cols: torch.Tensor,
                               pos_cols: torch.Tensor
                               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K2's plain version: K1's plain parity, then the arithmetic of
-    crc_fold.tile_partials_np with &1 after each contraction, one bit
-    plane and one group of tiles at a time.  Returns (parity (r, n)
-    uint8, partials (k + r, n // tile) int32); a (V, k, n) input is taken
-    one volume at a time, each starting at tile position 0."""
+    """K2's plain version: K1's plain parity, then the partials of
+    crc_fold.tile_partials_np.  A tile's partial is GF(2)-linear in its
+    bytes: before the tile's position matrix, it is the XOR over
+    positions p of C[p][byte at p], where C[p] is the bit-0 contraction
+    (w0) and the plane fold applied to each of the 256 byte values at
+    p.  Returns (parity (r, n) uint8, partials (k + r, n // tile)
+    int32); a (V, k, n) input is taken one volume at a time, each
+    starting at tile position 0."""
     if shards.dim() == 3:
         outs = [apply_bitmatrix_crc_torch(masks, s, w0, plane_cols, pos_cols)
                 for s in shards]
@@ -252,33 +283,32 @@ def apply_bitmatrix_crc_torch(masks: torch.Tensor, shards: torch.Tensor,
     if n % tile:
         raise ValueError(f"width {n} not a multiple of tile {tile}")
     parity = apply_bitmatrix_torch(masks, shards)
-    w0_bits = _unpack_words(w0)                              # (T, 32 o)
-    planes_t = _unpack_words(plane_cols.reshape(8, 32))      # (8, 32 o, 32 i)
-    pos_t = _unpack_words(pos_cols.reshape(tpb, 32))         # (tpb, 32 i, 32 o)
+    dev = shards.device
+    shifts = torch.arange(32, device=dev)
     rows = shards.shape[0] + parity.shape[0]
     nt = n // tile
-    partials = torch.empty((rows, nt), dtype=torch.int32, device=shards.device)
+    partials = torch.empty((rows, nt), dtype=torch.int32, device=dev)
     group = max(1, _PLAIN_COLS // tile)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
+        w0_bits = _unpack_words(w0)                              # (T, 32 o)
+        planes_t = _unpack_words(plane_cols.reshape(8, 32))      # (8, 32 o, 32 i)
+        pos_t = _unpack_words(pos_cols.reshape(tpb, 32))         # (tpb, 32 i, 32 o)
+        folded = (w0_bits @ planes_t).to(torch.int64) & 1        # (8 s, T, 32 i)
+        table = _byte_images(_to_int32((folded << shifts).sum(-1))) \
+            .T.contiguous().reshape(-1)                         # [p*256 + v]
+        base = torch.arange(tile, device=dev) * 256
         for t0 in range(0, nt, group):
             t1 = min(nt, t0 + group)
             cols = slice(t0 * tile, t1 * tile)
-            x = torch.cat([shards[:, cols], parity[:, cols]]).to(torch.int32)
-            fold = torch.zeros((rows, t1 - t0, 32), dtype=torch.float32,
-                               device=shards.device)
-            for s in range(8):
-                bits = ((x >> s) & 1).to(torch.float32) \
-                    .reshape(rows, t1 - t0, tile)
-                ub = ((bits @ w0_bits).to(torch.int32) & 1).to(torch.float32)
-                fold += ub @ planes_t[s]
-            v = (fold.to(torch.int32) & 1).to(torch.float32)
-            pm = pos_t[torch.arange(t0, t1, device=shards.device) % tpb]
+            x = torch.cat([shards[:, cols], parity[:, cols]]) \
+                .reshape(rows, t1 - t0, tile).to(torch.int64) + base
+            v = ((_xor_last(torch.take(table, x))[..., None] >> shifts)
+                 & 1).to(torch.float32)                          # (r, t, 32 i)
+            pm = pos_t[torch.arange(t0, t1, device=dev) % tpb]
             sh = torch.einsum("rti,tio->rto", v, pm).to(torch.int64) & 1
-            word = (sh << torch.arange(32, device=shards.device)).sum(-1)
-            partials[:, t0:t1] = torch.where(
-                word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+            partials[:, t0:t1] = _to_int32((sh << shifts).sum(-1))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return parity, partials

@@ -399,5 +399,11 @@ class Store:
             return new, deleted
 
     def close(self) -> None:
-        for loc in self.locations:
-            loc.close()
+        # Under the store's lock, as `add_volume` and `mount_volume`
+        # write a location's volumes: a request still in flight when a
+        # volume server stops waits, where it would change the dict
+        # `DiskLocation.close` walks (Go's DiskLocation.Close holds the
+        # volumesLock that its adds take).
+        with self._lock:
+            for loc in self.locations:
+                loc.close()

@@ -16,7 +16,8 @@ shell environment and client of the same package; the `pkg` fixture
 runs a test once per package.  `seed_placement` gives one package's
 file-id cookies and volume picks a seeded stream of their own;
 `grpc_pair_port` a server port below the ephemeral range whose gRPC
-twin (+10000) is free too.
+twin (+10000) is free too, from a slice of its own for each xdist
+worker.
 
 `count_plain_launches` lets chip_smoke's phases rehearse on the CPU.
 
@@ -82,14 +83,44 @@ def both(scenario, seed: int = 0):
     return out[1]
 
 
+# Server ports.  Their gRPC planes bind port + 10000, 22000-31999:
+# outside this range, so no server's port is another's gRPC plane, and
+# below the ephemeral range (32768 and up on Linux).
+PORT_RANGE = range(12000, 22000)
+
+
+def port_slice() -> range:
+    """The ports this process hands out: under xdist, worker gwN of M
+    takes the N-th of M equal slices of PORT_RANGE, so that no two
+    workers ever hand out one port; outside xdist, the whole range."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    count = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0") or 0)
+    if not worker.startswith("gw") or count < 2:
+        return PORT_RANGE
+    size = len(PORT_RANGE) // count
+    lo = PORT_RANGE.start + int(worker[2:]) * size
+    return range(lo, lo + size)
+
+
+_unused_ports: list[int] = []
+
+
 def grpc_pair_port() -> int:
     """A port for a server whose gRPC plane binds port + 10000: both
     free, and both below the ephemeral range (32768 and up on Linux),
     where no outbound connection of this host takes them.  A server on
     port 0 gets an ephemeral port, and its gRPC twin can then be the
-    source port of any connection in the suite."""
-    for _ in range(200):
-        port = random.SystemRandom().randrange(12000, 22768)
+    source port of any connection in the suite.  Ports come from this
+    process's `port_slice`, each once in a shuffled pass over the slice
+    before any comes again: a server of another worker never takes a
+    port this one stopped and means to restart on, and a port reused
+    within the process is at least a slice's worth of servers old."""
+    ports = port_slice()
+    for _ in range(2 * len(ports)):
+        if not _unused_ports:
+            _unused_ports.extend(
+                random.SystemRandom().sample(ports, len(ports)))
+        port = _unused_ports.pop()
         try:
             with socket.socket() as a, socket.socket() as b:
                 a.bind(("127.0.0.1", port))
@@ -98,6 +129,22 @@ def grpc_pair_port() -> int:
         except OSError:
             continue
     raise RuntimeError("no free port pair below the ephemeral range")
+
+
+def drop_idle_connections() -> None:
+    """Close both packages' idle keep-alive client connections.  Each
+    package's pool is process-wide and keyed by host and port, and the
+    servers of an earlier test have closed its connections to them: a
+    server that takes one of those ports again would otherwise meet
+    them, and the reference's client raises when the two it tries are
+    dead (ROADMAP, reference faults)."""
+    for pkg in PACKAGES:
+        pool = mod(pkg, "cluster.rpc")._pool
+        with pool._lock:
+            idle = [c for conns in pool._idle.values() for c in conns]
+            pool._idle.clear()
+        for conn in idle:
+            conn.close()
 
 
 def seed_placement(monkeypatch, pkg: str, seed: int) -> None:
@@ -143,18 +190,20 @@ def hermetic_port_state(monkeypatch):
     `rpc.free_port` gives ports below the ephemeral range
     (`grpc_pair_port`): a server restarted on its port, or a gRPC plane
     on port + 10000, otherwise finds it taken as the source port of some
-    connection of the suite."""
+    connection of the suite.  Every test starts with both packages'
+    client pools empty (`drop_idle_connections`)."""
     for pkg in PACKAGES:
         monkeypatch.setattr(mod(pkg, "cluster.rpc"), "free_port",
                             grpc_pair_port)
+    drop_idle_connections()
     _reset_port_globals()
     yield
     _reset_port_globals()
 
 
 class Clock:
-    """Stands in for the `time` module: `time()` reads `now`, which the
-    test moves; everything else is the real module."""
+    """Stands in for the `time` module: `time()` and `gmtime()` read
+    `now`, which the test moves; everything else is the real module."""
 
     def __init__(self, now: float = EPOCH_S):
         self.now = now
@@ -164,6 +213,9 @@ class Clock:
 
     def time_ns(self) -> int:
         return int(self.now * 1e9)
+
+    def gmtime(self, secs: float | None = None) -> time.struct_time:
+        return time.gmtime(self.now if secs is None else secs)
 
     def __getattr__(self, name):
         return getattr(time, name)

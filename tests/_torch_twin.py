@@ -22,7 +22,8 @@ one case per value, as pytest's ids name them); `run(case_id, tmp_path)`
 runs the case in the JAX package's copy and then in the port's, each in
 a directory of its own with `random` and numpy's global generator
 seeded alike, requires both to pass, and requires the two records to be
-equal, assert by assert.
+equal, assert by assert.  A half that fails carries a note naming it
+("failed in the port's half"), which the test's report shows.
 
 What an assert records: for `a == b` and `a != b` both operands; for
 `a in b` and `a not in b` the left operand and the outcome; for any other
@@ -38,8 +39,9 @@ during a run, alike in both packages, and so do the bytes the test
 file itself draws from `os.urandom` (its `import os`, at any depth, is
 the twin's); file-id cookies and volume picks, and trace and span ids,
 draw from seeded streams of their own (`seed_placement`, `_SeededOs`).
-The process-wide counters that reference cases read as absolute values
-(`FRESH_COUNTERS`) start empty in each package's half.
+The process-wide counters and histograms that reference cases read as
+absolute values (`FRESH_COUNTERS`, `FRESH_HISTOGRAMS`) start empty in
+each package's half, and hold the process's values again after it.
 An assert on a thread other than the case's own is compared as one of
 a set: how often such a thread loops, and how its asserts interleave
 with the case's, is the scheduler's.  A case whose test holds no assert
@@ -95,6 +97,7 @@ _CMP = {"Eq": operator.eq, "NotEq": operator.ne, "Lt": operator.lt,
         "Is": operator.is_, "IsNot": operator.is_not,
         "In": lambda a, b: a in b, "NotIn": lambda a, b: a not in b}
 BIG = 4096
+HALF = {PACKAGES[0]: "the JAX package", PORT: "the port"}
 # Process-wide counters whose absolute values reference cases assert
 # on: a case that reads "no series yet" or "the count before" sees what
 # every earlier test in the process left there (under xdist's
@@ -103,6 +106,32 @@ BIG = 4096
 # process has them, and gets the process's values back afterwards.
 FRESH_COUNTERS = (("stats.metrics", "ec_stage_bytes"),
                   ("events.journal", "events_total"))
+# The same for histograms (test_attribution.py counts the lock
+# histograms' observations of its own locks), zeroed and given back in
+# place: a lock's pre-resolved series handle holds its count list.
+FRESH_HISTOGRAMS = (("stats.contention", "lock_wait_seconds"),
+                    ("stats.contention", "lock_hold_seconds"))
+
+
+def _zero_histogram(hist) -> dict:
+    """Zero every series of `hist` in place; returns what they held."""
+    with hist._lock:
+        held = {k: (list(c), hist._sums[k], hist._totals[k])
+                for k, c in hist._counts.items()}
+        for k, c in hist._counts.items():
+            c[:] = [0] * len(c)
+            hist._sums[k], hist._totals[k] = 0.0, 0
+    return held
+
+
+def _restore_histogram(hist, held: dict) -> None:
+    """Every series of `hist` back to what `held` says, in place; a
+    series made since then to zero."""
+    with hist._lock:
+        for k, c in hist._counts.items():
+            counts, total_s, n = held.get(k, ([0] * len(c), 0.0, 0))
+            c[:] = counts
+            hist._sums[k], hist._totals[k] = total_s, n
 
 
 class Recorder:
@@ -116,6 +145,7 @@ class Recorder:
         self.owner = None
         self.roots: list[str] = []
         self.unrecorded: frozenset = frozenset()
+        self.grpc_alike: frozenset = frozenset()
         self.subs: tuple = ()
 
     def text(self, s: str) -> str:
@@ -162,7 +192,10 @@ class Recorder:
                     and callable(getattr(v, "details", None)):
                 # A grpc.RpcError: its status, not the debug string
                 # (whose field order varies from call to call).
-                return ("raised", "grpc", str(v.code()),
+                code = str(v.code())
+                if code in self.grpc_alike:
+                    return ("raised", "grpc", sorted(self.grpc_alike))
+                return ("raised", "grpc", code,
                         self.text(v.details() or ""))
             return ("raised", type(v).__name__, self.text(str(v)))
         if dataclasses.is_dataclass(v) and not isinstance(v, type):
@@ -458,11 +491,15 @@ class TwinFile:
     the strings the port's run records, for the names `port_subs`
     mapped: the records then compare as if the names were the
     reference's.  `subs` edit both packages' copies alike, for what the
-    file's fixtures set up (never an assert)."""
+    file's fixtures set up (never an assert).  `grpc_alike` maps a case
+    to gRPC status codes that its run's timing, not the package, picks
+    between: a gRPC error with one of them records as the set, and any
+    other error, gRPC or not, records as it is."""
 
     def __init__(self, name: str, clocked: tuple = (), prelude=None,
                  port_subs: tuple = (), unrecorded=None,
-                 record_subs: tuple = (), subs: tuple = ()):
+                 record_subs: tuple = (), subs: tuple = (),
+                 grpc_alike=None):
         self.name = name.removesuffix(".py")
         self.clocked = clocked
         self.prelude = dict(prelude or {})
@@ -470,6 +507,8 @@ class TwinFile:
                            (unrecorded or {}).items()}
         self.port_subs = tuple(port_subs)
         self.record_subs = tuple(record_subs)
+        self.grpc_alike = {c: frozenset(f"StatusCode.{k}" for k in a)
+                           for c, a in (grpc_alike or {}).items()}
         self.ref = load(self.name, PACKAGES[0], subs=subs)
         load(self.name, PORT, self.port_subs, subs)
         self.cases: dict[str, Case] = {}
@@ -521,11 +560,18 @@ class TwinFile:
             random.seed(seed)
             np.random.seed(seed)
             before = [self.cases[c] for c in self.prelude.get(case_id, ())]
-            out.append(_run_one(load(self.name, pkg), case, pkg, root,
-                                self.clocked, before,
-                                self.unrecorded.get(case_id, frozenset()),
-                                seed, self.record_subs if pkg == PORT
-                                else ()))
+            try:
+                out.append(_run_one(load(self.name, pkg), case, pkg, root,
+                                    self.clocked, before,
+                                    self.unrecorded.get(case_id,
+                                                        frozenset()),
+                                    seed, self.record_subs if pkg == PORT
+                                    else (),
+                                    self.grpc_alike.get(case_id,
+                                                        frozenset())))
+            except BaseException as e:
+                e.add_note(f"{case_id}: failed in {HALF[pkg]}'s half")
+                raise
         (ref, ref_threads), (port, port_threads) = out
         named = self.unrecorded.get(case_id, frozenset())
         hit = {r[1] for r in ref if r[0] == "unrecorded"}
@@ -625,11 +671,12 @@ class _SeededOs:
 
 def _run_one(mod, case: Case, pkg: str, root, clocked=(),
              before=(), unrecorded=frozenset(), seed: int = 0,
-             record_subs: tuple = ()) -> list:
+             record_subs: tuple = (), grpc_alike=frozenset()) -> list:
     rec = mod.__twin_rec__
     rec.records = []
     rec.roots = [str(root)]
     rec.unrecorded = unrecorded
+    rec.grpc_alike = grpc_alike
     rec.subs = record_subs
     rec.thread_records = set()
     rec.owner = threading.get_ident()
@@ -653,6 +700,9 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=(),
     for name, attr in FRESH_COUNTERS:
         counter = getattr(importlib.import_module(f"{pkg}.{name}"), attr)
         mp.setattr(counter, "_values", {})
+    held = [(hist, _zero_histogram(hist)) for hist in (
+        getattr(importlib.import_module(f"{pkg}.{name}"), attr)
+        for name, attr in FRESH_HISTOGRAMS)]
     # Ids drawn from `secrets` (hard-link ids) come from the seeded
     # `random` instead, alike in both packages.
     mp.setattr(secrets, "token_hex", _seeded_token_hex)
@@ -715,6 +765,8 @@ def _run_one(mod, case: Case, pkg: str, root, clocked=(),
         for fin in reversed(finalizers):
             fin()
         mp.undo()
+        for hist, values in held:
+            _restore_histogram(hist, values)
         rec.owner = None
     return rec.records, rec.thread_records
 

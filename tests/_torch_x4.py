@@ -2,23 +2,20 @@
 on localhost, runs `all_to_all_reconstruct` or `ring_reconstruct` of
 `seaweedfs_tpu_torch.parallel.sharded_codec` on a CPU tensor (the
 kernel's plain version), and writes what it got.  Imports torch, numpy
-and the port only, so the ranks start without JAX."""
+and the port only, so the ranks start without JAX.  The ranks' gloo
+store listens on a port below the ephemeral range, from this xdist
+worker's slice (`_torch_cluster.grpc_pair_port`): a port picked by
+binding port 0 is free only until some connection of another worker
+takes it as its source port."""
 
 from __future__ import annotations
 
 import os
-import socket
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _rank(rank: int, world: int, port: int, fn_name: str, case: str,
@@ -51,12 +48,13 @@ def run(fn_name: str, world: int, stacked: np.ndarray, present, wanted,
     """Run `fn_name` on `world` spawned gloo ranks.  Returns
     {"local": [each rank's column block], "whole": [each rank's gathered
     output]} or {"errors": [each rank's ValueError message]}."""
+    from _torch_cluster import grpc_pair_port
     out_dir = str(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     case = os.path.join(out_dir, "case.npz")
     np.savez(case, stacked=stacked, present=np.asarray(present),
              wanted=np.asarray(wanted))
-    mp.spawn(_rank, args=(world, free_port(), fn_name, case, out_dir),
+    mp.spawn(_rank, args=(world, grpc_pair_port(), fn_name, case, out_dir),
              nprocs=world, join=True)
     errs = [os.path.join(out_dir, f"err{r}.txt") for r in range(world)]
     if any(os.path.exists(e) for e in errs):

@@ -144,3 +144,59 @@ def test_replicated_write_fails_when_sibling_down(cluster):
                          "POST", b"must not half-land")
     assert ei.value.status == 500
     assert "replication failed" in ei.value.message
+
+
+def test_replicated_write_acked_when_master_refuses_lookup(cluster):
+    """A reference fault both packages keep (ROADMAP queue 3): when the
+    primary's master lookup fails, `_replicate` returns ("the local write
+    stands") and a write to a `001` volume whose sibling is down is
+    acknowledged with one copy.  Go's store_replicate.go fails it.  The
+    sibling-down case above asks for the 500, and any failed lookup (a
+    refusal, a timeout, two dead pooled connections to the master in
+    the reference's client) turns it into this acknowledgement."""
+    client = cluster.client()
+    fid = client.upload_data(b"seed", replication="001")
+    vid = int(fid.split(",")[0])
+    locs = client.lookup(vid)
+    primary = cluster.server(locs[0]["url"])
+    cluster.server(locs[1]["url"]).stop()
+    primary._vol_loc_cache.clear()
+
+    def refuse(query, body):
+        raise cluster.rpc.RpcError(503, "lookup refused")
+
+    cluster.master.server.route("GET", "/dir/lookup", refuse)
+    late = f"{vid},777700000001"
+    out = cluster.rpc.call(f"http://{primary.url()}/{late}", "POST",
+                           b"acked with one copy")
+    assert out["size"] > 0
+    assert bytes(cluster.rpc.call(f"http://{primary.url()}/{late}")) \
+        == b"acked with one copy"
+
+
+def test_replicated_write_acked_once_while_sibling_drained(cluster):
+    """The same fault when the master answers: a drained sibling's
+    goodbye unregisters it, the primary's lookup then lists the primary
+    alone, and a write to the `001` volume is acknowledged with one
+    copy, which the sibling never gets.  Both packages keep it (ROADMAP
+    queue 3); store_replicate.go refuses a write with fewer locations
+    than the placement's copies.  In the rolling restart of
+    tests/test_overload.py such a needle has no replica left to read
+    while its one holder restarts."""
+    client = cluster.client()
+    fid = client.upload_data(b"seed", replication="001")
+    vid = int(fid.split(",")[0])
+    locs = client.lookup(vid)
+    primary = cluster.server(locs[0]["url"])
+    sibling = cluster.server(locs[1]["url"])
+    sibling.drain(grace=0)
+    primary._vol_loc_cache.clear()
+    late = f"{vid},777700000001"
+    out = cluster.rpc.call(f"http://{primary.url()}/{late}", "POST",
+                           b"acked with one copy")
+    assert out["size"] > 0
+    lookup = cluster.rpc.call(f"{cluster.url()}/dir/lookup?volumeId={vid}")
+    assert [loc["url"] for loc in lookup["locations"]] == [primary.url()]
+    with pytest.raises(cluster.rpc.RpcError) as ei:
+        cluster.rpc.call(f"http://{sibling.url()}/{late}")
+    assert ei.value.status == 404

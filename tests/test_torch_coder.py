@@ -378,3 +378,28 @@ def test_wrappers_take_a_volume_axis():
         assert torch.equal(par[v], p1) and torch.equal(parts[v], q1)
     with pytest.raises(ValueError):
         apply_bitmatrix(masks, torch.zeros((2, 9, 16), dtype=torch.uint8))
+
+
+def test_plain_versions_cost_under_one_multiply_add_per_byte():
+    """The plain versions are the port's whole EC path on a host without
+    a card, and a volume server's `/admin/ec/generate` answers within
+    its caller's 10 s: they look each byte up in tables built from the
+    masks and CRC constants instead of multiplying its eight bit planes
+    by the matrix.  Past the tables' fixed cost, a 10 -> 4 encode costs
+    K1 no multiply-add and K2 under one per input byte."""
+    from torch.utils.flop_counter import FlopCounterMode
+    rs = codecs.get_codec("rs")
+    masks = _masks(plane_major(rs.parity_bitmatrix(), 4, 10))
+    consts = [torch.from_numpy(a)
+              for a in pack_crc_tables(crc_fold.tables(BLOCK_N))]
+
+    def flops(fn, n: int, *tables) -> int:
+        with FlopCounterMode(display=False) as count:
+            fn(masks, torch.zeros((10, n), dtype=torch.uint8), *tables)
+        return count.get_total_flops()
+
+    n1, n2 = 64 * BLOCK_N, 128 * BLOCK_N
+    for fn, tables, per_byte in ((apply_bitmatrix, (), 0),
+                                 (apply_bitmatrix_crc, consts, 1)):
+        grown = flops(fn, n2, *tables) - flops(fn, n1, *tables)
+        assert grown <= per_byte * 2 * 10 * (n2 - n1), (fn.__name__, grown)

@@ -314,7 +314,7 @@ def test_duplicate_delivery_is_a_noop(mirror):
     assert P.client.WeedClient(sb_master.url()).download(fid) == payload
 
 
-def test_partition_holds_watermark_then_heals(mirror):
+def heal_after_partition(mirror) -> None:
     P, _pm, pr_vs, sb_master, _sbv = mirror
     P.fault.arm("wan.partition", "fail*1000")
     payload = b"written during the partition " * 8
@@ -329,7 +329,55 @@ def test_partition_holds_watermark_then_heals(mirror):
     sh.kick()
     wait_shipped(P, pr_vs, vid)
     assert P.client.WeedClient(sb_master.url()).download(fid) == payload
+    lag_observed(sh)
     assert sh.lag_view()["volumes"][str(vid)]["lag_seq"] == 0
+
+
+def test_partition_holds_watermark_then_heals(mirror):
+    heal_after_partition(mirror)
+
+
+def test_heal_reads_the_lag_the_shipper_observed_after_its_ack(mirror,
+                                                               monkeypatch):
+    """The heal as a loaded host can order it: the shipper acks the
+    batch, then the test reads its lag rows before the shipper observes
+    the lag again.  Here a volume's observation that would clear its lag
+    waits until a read of `lag_view()` has found the row stale (log
+    acked, row still lagging), so that read always comes first.  A
+    heal that asserts on the first read fails here."""
+    _P, _pm, pr_vs, _sbm, _sbv = mirror
+    sh = pr_vs.shipper
+    stale_read: dict[int, threading.Event] = {}
+
+    def event(vid: int) -> threading.Event:
+        return stale_read.setdefault(vid, threading.Event())
+
+    observe, view = sh._observe_lag, sh.lag_view
+    reader = threading.get_ident()  # the test's reads, not the beats'
+
+    def observe_after_a_stale_read(vid, rlog):
+        if rlog.pending() == 0 and (sh._lag.get(vid) or {}).get("lag_seq"):
+            event(vid).wait(20)
+        observe(vid, rlog)
+
+    def lag_view():
+        out = view()
+        if threading.get_ident() != reader:
+            return out
+        for key, row in out["volumes"].items():
+            v = pr_vs.store.find_volume(int(key))
+            if row["lag_seq"] and v is not None and v.rlog is not None \
+                    and v.rlog.pending() == 0:
+                event(int(key)).set()
+        return out
+
+    monkeypatch.setattr(sh, "_observe_lag", observe_after_a_stale_read)
+    monkeypatch.setattr(sh, "lag_view", lag_view)
+    try:
+        heal_after_partition(mirror)
+    finally:
+        for ev in stale_read.values():
+            ev.set()
 
 
 def lag_observed(sh) -> None:

@@ -6,7 +6,8 @@ packages: tiering through the repo's own S3 gateway
 reference's own asserts in each package, and the values they compare
 must be equal across the two (masked fields: see `_torch_twin`).  The
 port's `server` subprocess gets `-device=cpu`, as any caller of the port
-on a host without a card must pass.
+on a host without a card must pass, and both packages' `server` ports
+come from `_torch_cluster.grpc_pair_port`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,22 @@ from _torch_twin import TwinFile
 
 pytestmark = pytest.mark.torch
 
+# test_cli.py picks the `server` subprocess's five ports by binding port
+# 0 and closing it: ephemeral ports, which any outbound connection of
+# the host may take as its source port before the subprocess binds them
+# seconds later, and whose gRPC planes (+10000) may lie there too.  Both
+# packages' copies take them where every server of the port's tests
+# does, below the ephemeral range with port + 10000 free.
+FREE_PORT = """    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+"""
+GRPC_PAIR_PORT = """    def free_port():
+        from _torch_cluster import grpc_pair_port
+        return grpc_pair_port()
+"""
+
 TWINS = {
     # The reference runs the shell case second on its module-scoped
     # stack, after the roundtrip; so does the twin, on the same servers.
@@ -28,7 +45,8 @@ TWINS = {
         "test_s3_quota_and_slowdown_xml",)),
     "test_cli.py": (TwinFile("test_cli.py", port_subs=(
         ('"seaweedfs_tpu_torch", "server",',
-         '"seaweedfs_tpu_torch", "server", "-device=cpu",'),)), (
+         '"seaweedfs_tpu_torch", "server", "-device=cpu",'),),
+        subs=((FREE_PORT, GRPC_PAIR_PORT),)), (
         "test_server_full_stack_s3_webdav",)),
 }
 CASES = [(f, c) for f, (twin, names) in TWINS.items()

@@ -190,13 +190,28 @@ def shard_holders(doc: dict) -> dict:
             for s, locs in doc.get("ecShards", {}).items()}
 
 
+def leader_of_four(cl) -> str | None:
+    """The raft leader once every master serves and the leader's healthz
+    counts four volume servers.  Two masters elect a leader while the
+    third may still be starting (its imports, a loaded host), and the
+    lookups polled after encode_one would meet it unserving.  A master
+    that lost the lead since `cl.leader()` answers without "nodes" (and
+    names the new leader): not yet."""
+    if not all(cl.status(u) for u in cl.murls):
+        return None
+    leader = cl.leader()
+    if leader is None:
+        return None
+    doc = cl.rpc.call_status(leader + "/cluster/healthz", timeout=2.0)[1]
+    return leader if len(doc.get("nodes", ())) == 4 else None
+
+
 def encode_one(cl: HaCluster, pkg: str) -> tuple[str, int, dict]:
     """Through the raft leader: one volume of 24 needles, `ec.encode` of
     it, and its 14 shards at the leader; (leader, vid, shard holders)."""
-    leader = wait_for(cl.leader, "a raft leader")
-    wait_for(lambda: len(cl.rpc.call_status(
-        leader + "/cluster/healthz", timeout=2.0)[1]["nodes"]) == 4,
-        "four volume servers at the leader")
+    wait_for(cl.leader, "a raft leader")
+    leader = wait_for(lambda: leader_of_four(cl),
+                      "four volume servers at the leader")
     cl.rpc.call(f"{leader}/vol/grow?count=1&collection=ha", "POST")
     client = mod(pkg, "cluster.client").WeedClient(list(cl.murls))
     rng = np.random.default_rng(11)
@@ -394,3 +409,35 @@ def test_no_404_across_an_ha_master_device_setup_stall_in_the_port_only(
             and out["device_s"] < HOLD, out
     else:
         assert out["term_moved"] and out["not_found"], out
+
+
+def test_leader_wait_holds_for_every_master_and_a_lost_lead():
+    """The third master is still starting when two have elected m1, and
+    m1 has lost the lead when its healthz answers: the wait goes on
+    until all three serve and the new leader counts four servers."""
+    serving = [[True, True, False], [True, True, True], [True, True, True]]
+    answers = [
+        (200, {"healthy": True, "is_leader": False,
+               "leader": "http://m2", "problems": []}),
+        (200, {"nodes": [{}] * 4})]
+    leaders = ["http://m1", "http://m2"]
+    polls = iter(up for row in serving for up in row)
+
+    class Cl:
+        murls = ["http://m1", "http://m2", "http://m3"]
+
+        def status(self, url):
+            return {"is_leader": False} if next(polls) else None
+
+        def leader(self):
+            return leaders.pop(0)
+
+        class rpc:
+            @staticmethod
+            def call_status(url, timeout):
+                return answers.pop(0)
+
+    cl = Cl()
+    assert wait_for(lambda: leader_of_four(cl), "four servers") \
+        == "http://m2"
+    assert not leaders and not answers

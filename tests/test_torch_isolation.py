@@ -431,6 +431,27 @@ def test_native_crc_builds_from_source_when_the_committed_library_fails(
     assert native.crc32c_fn(lib)(b"123456789") == 0xE3069283
 
 
+# The roles that start a gRPC plane, and so log that it is off.
+GRPC_ROLES = ("master", "volume", "filer", "msg.broker")
+
+
+def wait_logged(logs, text: str, timeout: float = 90.0, sleep=None) -> None:
+    """Wait until the log of every role in GRPC_ROLES holds `text`.  A
+    role logs that its gRPC plane is off just after it starts serving
+    HTTP, so a role that answers may not have written the line yet, and
+    a role stopped then never writes it."""
+    import time
+    sleep = sleep or time.sleep
+    deadline = time.monotonic() + timeout
+    while True:
+        short = [log for log in logs if log.stem in GRPC_ROLES
+                 and text not in log.read_text()]
+        if not short:
+            return
+        assert time.monotonic() < deadline, short[0].read_text()[-3000:]
+        sleep(0.2)
+
+
 def test_port_gateways_serve_without_grpc_and_protobuf(tmp_path):
     """`python -m seaweedfs_tpu_torch s3` and `msg.broker` (beside a
     master, a volume server and a filer) in processes where grpc,
@@ -501,6 +522,7 @@ def test_port_gateways_serve_without_grpc_and_protobuf(tmp_path):
         msgs = c.fetch("ns", "t", 0)["messages"]
         assert [m["value"] for m in msgs] == [b"hello"]
         assert json.loads(json.dumps(rpc.call(broker + "/status")))
+        wait_logged(logs, "gRPC plane disabled")
     finally:
         for p in procs:
             p.terminate()
@@ -509,8 +531,28 @@ def test_port_gateways_serve_without_grpc_and_protobuf(tmp_path):
     for log in logs:
         text = log.read_text()
         assert "Traceback" not in text, text[-3000:]
-        if log.stem in ("master", "volume", "filer", "msg.broker"):
+        if log.stem in GRPC_ROLES:
             assert "gRPC plane disabled" in text, text[-3000:]
+
+
+def test_roles_are_stopped_only_after_logging_the_plane_off():
+    """The broker answered its first request before it logged that its
+    gRPC plane is off, and the case stopped it there (its log held the
+    "serving" line alone).  The wait reads the log until the line comes."""
+
+    class Log:
+        stem = "msg.broker"
+        reads = 0
+
+        def read_text(self):
+            self.reads += 1
+            return "message broker serving at http://x:1\n" + (
+                "gRPC plane disabled (grpcio missing)\n"
+                if self.reads > 2 else "")
+
+    log = Log()
+    wait_logged([log], "gRPC plane disabled", sleep=lambda s: None)
+    assert log.reads == 3
 
 
 def test_both_packages_register_the_same_21_commands():

@@ -17,7 +17,13 @@ from _torch_twin import TwinFile
 
 pytestmark = pytest.mark.torch
 
-TWIN = TwinFile("test_master_grpc.py")
+# test_weedclient_grpc_transport stops the gRPC plane and expects the
+# next call to raise: UNAVAILABLE once the plane has closed its port,
+# CANCELLED when the call reaches it while it still shuts down, which a
+# loaded host makes happen in either package.  Either status records
+# alike; any other error still records as it is.
+TWIN = TwinFile("test_master_grpc.py", grpc_alike={
+    "test_weedclient_grpc_transport": ("UNAVAILABLE", "CANCELLED")})
 
 
 @pytest.mark.parametrize("case", TWIN.ids())

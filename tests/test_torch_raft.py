@@ -269,12 +269,22 @@ def wait_master_leader(P, masters, timeout=DEADLINE, registered=False):
     raise AssertionError("no master leader")
 
 
+def leader_and_follower(P, masters):
+    """The registered leader and a follower that names it.  A follower
+    learns the leader from its first append and answers an assign with
+    503 "no leader elected yet" until then."""
+    leader = wait_master_leader(P, masters, registered=True)
+    follower = next(m for m in masters if m is not leader)
+    wait_for(lambda: follower.raft.leader() == leader.url(),
+             what="a follower that names the leader")
+    return leader, follower
+
+
 def test_master_ha_assign_via_follower(tmp_path):
     def scenario(P, d):
         masters, vs = start_ha(P, d)
         try:
-            leader = wait_master_leader(P, masters, registered=True)
-            follower = next(m for m in masters if m is not leader)
+            leader, follower = leader_and_follower(P, masters)
             out = P.rpc.call(follower.url() + "/dir/assign?count=1")
             s1 = P.rpc.call(leader.url() + "/cluster/status")
             s2 = P.rpc.call(follower.url() + "/cluster/status")
@@ -289,6 +299,35 @@ def test_master_ha_assign_via_follower(tmp_path):
     state = each_package(scenario, tmp_path)
     assert state["fid"] and state["same_leader"]
     assert state["is_leader"] == [True, False]
+
+
+def test_follower_named_the_leader_before_its_assign():
+    """The follower has not had its first append when the leader is
+    elected and registered: the pair comes back once it names the
+    leader."""
+    heard = [None, None, "http://m1"]
+
+    class Raft:
+        def __init__(self, state, leader):
+            self.state, self._leader = state, leader
+
+        def leader(self):
+            return self._leader()
+
+    class Master:
+        def __init__(self, url, state, leader):
+            self._url, self.raft = url, Raft(state, leader)
+            self.topo = SimpleNamespace(leaves=lambda: ["node"])
+
+        def url(self):
+            return self._url
+
+    P = SimpleNamespace(raft=SimpleNamespace(LEADER="leader"))
+    leader = Master("http://m1", "leader", lambda: "http://m1")
+    follower = Master("http://m2", "follower",
+                      lambda: heard.pop(0) if len(heard) > 1 else heard[0])
+    assert leader_and_follower(P, [leader, follower]) == (leader, follower)
+    assert follower.raft.leader() == "http://m1" and heard == ["http://m1"]
 
 
 def assign_after_reregistration(P, master):

@@ -8,7 +8,8 @@ fault,profile,lifecycle,tenant}.py runs against each, in the same order.
 With each cluster's addresses and directory named alike, a verb whose
 output is deterministic must print the same text in both packages.
 Verbs that print timings, byte counts of the wire or probed peaks (the
-`SHAPED` set) are compared with every number masked.  This covers the
+`SHAPED` set) are compared with every number masked, and trace.ls
+without the padding of its milliseconds column.  This covers the
 port counterparts of tests/test_slo.py::test_debug_hot_and_cluster_hot_shell,
 tests/test_lifecycle.py::test_shell_verbs_and_metrics_exposition and
 tests/test_tenancy.py::test_shell_tenant_verbs.
@@ -80,6 +81,15 @@ def _normalise(text: str, cluster, root) -> str:
     return text.replace(cluster.pkg, "<pkg>")
 
 
+def mask_numbers(text: str, label: str) -> str:
+    """Every number of a SHAPED verb's output as "#".  trace.ls first
+    loses the padding of its MS column, which right-aligns each trace's
+    milliseconds in nine characters: a timing's digits set it."""
+    if label == "trace.ls":
+        text = re.sub(r" +(\d+\.\d\d)  ", r"  \1  ", text)
+    return re.sub(r"\d+(\.\d+)?", "#", text)
+
+
 def _reset(pkg) -> None:
     """The package's process-global planes that its in-process servers
     fold into verb output (the event journal, the roofline ledger's rows,
@@ -146,7 +156,7 @@ def _drive(pkg, root):
                                                                "  !!"))
                                   and "<" not in ln and ":" not in ln)
             if label in SHAPED:
-                text = re.sub(r"\d+(\.\d+)?", "#", text)
+                text = mask_numbers(text, label)
             out[label] = text
     finally:
         cluster.stop()
@@ -212,3 +222,25 @@ def test_fault_trace_and_profile_verbs_reach_every_server(outputs):
     assert "raise" not in out["trace.ls"]
     assert "raise" not in out["cluster.profile"]
     assert "drain" in out["cluster.drain"].lower()
+
+
+def test_trace_ls_mask_keeps_no_ms_column_width(monkeypatch):
+    """trace.ls right-aligns each trace's milliseconds in a column nine
+    wide: a trace of 9.5 ms and one of 10.5 ms print different padding,
+    and masked, the same text.  The other SHAPED verbs keep their
+    padding."""
+    trace = mod(PORT, "shell.command_trace")
+    env = type("Env", (), {"debug_servers": lambda self, flags: ["x:1"]})()
+
+    def listing(ms: float) -> str:
+        doc = {"traces": [{"trace_id": "ab" * 16, "duration_ms": ms,
+                           "spans": 3, "start": 1.0, "root": "GET /",
+                           "services": ["master"]}]}
+        monkeypatch.setattr(trace, "_fetch", lambda url, qs: doc)
+        return trace.TraceLs().do([], env)
+
+    short, long_ = listing(9.5), listing(10.5)
+    assert short.replace("  9.50", " 10.50") == long_
+    assert mask_numbers(short, "trace.ls") == mask_numbers(long_, "trace.ls")
+    assert mask_numbers(short, "cluster.conns") \
+        != mask_numbers(long_, "cluster.conns")

@@ -19,7 +19,8 @@ import threading
 import pytest
 import torch
 
-from _torch_storage import PAIR, PORT, flavor, needle, outcome, twin  # noqa: F401
+from _torch_storage import (PAIR, PORT, REF, flavor, needle,  # noqa: F401
+                            outcome, twin)
 
 pytestmark = pytest.mark.torch
 
@@ -239,6 +240,47 @@ def test_store(tmp_path, monkeypatch):
     assert steps["added"]["new"] == [1, 2]
     assert steps["added"]["dup"][1] == "VolumeError"
     assert steps["rediscovered"]["flipped"] == [2]
+
+
+@pytest.mark.parametrize("m", PAIR, ids=lambda m: m.name)
+def test_store_close_meets_a_volume_being_added(m, tmp_path, monkeypatch):
+    """A volume server's stop closes its store while a request still in
+    flight may add a volume.  The reference's `Store.close` takes no
+    store lock: the add lands while `DiskLocation.close` walks the
+    location's volumes, and the close raises (a SIGTERMed volume server
+    of test_overload's rolling restart died so).  The port's close holds
+    the store lock: the add waits, the close ends, and the volume lands
+    after it."""
+    s = m.store.Store([str(tmp_path)], ip="127.0.0.1", port=8080)
+    s.add_volume(1)
+    s.add_volume(2)
+    added = threading.Event()
+    adder = threading.Thread(target=lambda: (s.add_volume(3), added.set()))
+    closing = m.volume.Volume.close
+
+    def close(v):
+        if adder.ident is None:
+            adder.start()
+            # The reference's add never waits; the port's waits for the
+            # whole close, so this one is bounded.
+            added.wait(None if m is REF else 0.5)
+        closing(v)
+
+    monkeypatch.setattr(m.volume.Volume, "close", close)
+    try:
+        if m is REF:
+            with pytest.raises(RuntimeError, match="changed size"):
+                s.close()
+        else:
+            s.close()
+            adder.join()
+            assert added.is_set() and s.has_volume(3)
+    finally:
+        adder.join()
+        monkeypatch.undo()
+        for loc in s.locations:
+            for v in list(loc.volumes.values()):
+                v.close()
 
 
 # -- the 5-byte flavor past 32 GB --------------------------------------------
