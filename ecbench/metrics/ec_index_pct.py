@@ -1,0 +1,11 @@
+"""ec_index_pct.<mix>: the share of the window in which the main thread
+sorts the `.ecx` and writes the `.ecc` and `.vif`: the seconds of the
+EC file pipeline's `encode_index` stage in the window, from the
+program's stage counters, over the window's seconds."""
+
+from ecbench import program
+
+
+def read(ctx):
+    secs = ctx.delta(program.stage_seconds("encode_index"))
+    return None if secs is None else 100.0 * secs / ctx.window_s

@@ -20,6 +20,7 @@ import collections
 import os
 import queue
 import threading
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -30,21 +31,39 @@ from ..codecs import get_codec
 from ..fault import registry as _fault
 from ..ops.crc_fold import FusedCrcAccumulator, fused_crc_enabled
 from ..ops.erasure import ErasureCoder, host_array, new_coder
-from ..stats.metrics import ec_repair_read_bytes_total
+from ..stats.metrics import (ec_repair_read_bytes_total, ec_stage,
+                             profiler_range, stage_attrs)
 from ..storage.needle_map import MemDb
+from ..trace import root_span
+from ..trace import span as trace_span
 
 # Per-shard contiguous bytes handed to one coder call. Must divide
 # LARGE_BLOCK_SIZE and be a multiple of SMALL_BLOCK_SIZE.
 DEFAULT_CHUNK = 4 * 1024 * 1024
 
 
+@contextmanager
+def _span(name: str, root: bool = False, **attrs):
+    """A trace span and a profiler range of one name: the span joins the
+    request's trace (a `root` opens one outside any), the range puts it
+    on a profiler trace's clock."""
+    opened = root_span(name, "ec", **attrs) if root \
+        else trace_span(name, **attrs)
+    with opened as sp, profiler_range(name):
+        yield sp
+
+
 def write_sorted_file_from_idx(base_file_name: str,
                                ext: str = ".ecx") -> None:
-    """Generate the sorted `.ecx` from the `.idx` (WriteSortedFileFromIdx)."""
-    with open(base_file_name + ".idx", "rb") as f:
-        db = MemDb.from_idx(f)
-    with open(base_file_name + ext, "wb") as out:
-        out.write(db.to_sorted_bytes())
+    """Generate the sorted `.ecx` from the `.idx` (WriteSortedFileFromIdx),
+    spanned as `ec.encode.ecx` and timed as the stage `encode_index`."""
+    idx_bytes = os.path.getsize(base_file_name + ".idx")
+    with _span("ec.encode.ecx", root=True, bytes=idx_bytes), \
+            ec_stage("encode_index", idx_bytes):
+        with open(base_file_name + ".idx", "rb") as f:
+            db = MemDb.from_idx(f)
+        with open(base_file_name + ext, "wb") as out:
+            out.write(db.to_sorted_bytes())
 
 
 def _shard_write(f, sid: int, buf: bytes, accs) -> None:
@@ -72,56 +91,71 @@ def write_ec_files(base_file_name: str, coder: ErasureCoder | None = None,
     """Generate the shard files from the .dat (WriteEcFiles), plus the
     `.ecc` per-block checksum sidecar and the `.vif` codec id.  Without
     a `coder`, one is built on `device` (raises when that names CUDA and
-    no card is present)."""
-    if coder is None:
-        coder = new_coder(codec=codec, device=device)
-    cd = getattr(coder, "codec", None) or get_codec("rs")
-    if codec is not None and get_codec(codec).name != cd.name:
-        raise ValueError(
-            f"coder carries codec {cd.name!r} but {get_codec(codec).name!r} "
-            "was requested")
-    if cd.data_shards != DATA_SHARDS:
-        # The shard-file block layout (locate.py) row-stripes over
-        # exactly DATA_SHARDS columns.
-        raise ValueError(
-            f"codec {cd.name!r}: data shards must be {DATA_SHARDS} for "
-            "the weed shard layout")
-    dat_size = os.path.getsize(base_file_name + ".dat")
-    # Fused path: the coder emits every shard's per-block CRC32-C beside
-    # the parity (ops/crc_fold.py) — no CPU pass over the shard bytes.
-    # Requires the DEFAULT block geometry: only then are `_chunk_reader`
-    # widths 1MB-block multiples (except the final tail), which keeps
-    # the kernel partials block-aligned.
-    fused = (fused_crc_enabled(getattr(coder, "device", None))
-             and getattr(coder, "fused_crc_ok", False)
-             and chunk_size % SMALL_BLOCK_SIZE == 0
-             and small_block_size == SMALL_BLOCK_SIZE
-             and large_block_size % SMALL_BLOCK_SIZE == 0)
-    accs = None if fused \
-        else [BlockCrcAccumulator() for _ in range(cd.total_shards)]
-    outputs = [open(base_file_name + to_ext(i), "wb")
-               for i in range(cd.total_shards)]
-    try:
-        with open(base_file_name + ".dat", "rb") as dat:
-            chunks = _chunk_reader(dat, dat_size, large_block_size,
-                                   small_block_size, chunk_size)
-            crc_map = _pipelined_encode(chunks, coder, outputs, accs=accs)
-    finally:
-        for f in outputs:
-            f.close()
-    # The codec id travels in the .vif like the needle version.
-    update_volume_info(base_file_name, codec=cd.name)
-    with ecc_lock(base_file_name):
-        ecc = ShardChecksums(base_file_name)
-        for sid in range(cd.total_shards):
-            ecc.set_shard(sid, crc_map[sid] if crc_map is not None
-                          else accs[sid].finalize())
-        ecc.save()
+    no card is present).
+
+    Spanned as `ec.encode`, with the children `ec.encode.shards` (the
+    pipeline; its stages' totals as attributes) and `ec.encode.sidecars`;
+    every chunk's stages go to the EC stage histograms (`encode_read`,
+    `encode_read_wait`, `encode_submit`, `encode_write`, `encode_fetch`;
+    the sidecars as `encode_index`)."""
+    with _span("ec.encode", root=True) as root:
+        if coder is None:
+            coder = new_coder(codec=codec, device=device)
+        cd = getattr(coder, "codec", None) or get_codec("rs")
+        if codec is not None and get_codec(codec).name != cd.name:
+            raise ValueError(
+                f"coder carries codec {cd.name!r} but "
+                f"{get_codec(codec).name!r} was requested")
+        if cd.data_shards != DATA_SHARDS:
+            # The shard-file block layout (locate.py) row-stripes over
+            # exactly DATA_SHARDS columns.
+            raise ValueError(
+                f"codec {cd.name!r}: data shards must be {DATA_SHARDS} "
+                "for the weed shard layout")
+        dat_size = os.path.getsize(base_file_name + ".dat")
+        root.set(bytes=dat_size)
+        # Fused path: the coder emits every shard's per-block CRC32-C
+        # beside the parity (ops/crc_fold.py) — no CPU pass over the
+        # shard bytes.  Requires the DEFAULT block geometry: only then
+        # are `_chunk_reader` widths 1MB-block multiples (except the
+        # final tail), which keeps the kernel partials block-aligned.
+        fused = (fused_crc_enabled(getattr(coder, "device", None))
+                 and getattr(coder, "fused_crc_ok", False)
+                 and chunk_size % SMALL_BLOCK_SIZE == 0
+                 and small_block_size == SMALL_BLOCK_SIZE
+                 and large_block_size % SMALL_BLOCK_SIZE == 0)
+        accs = None if fused \
+            else [BlockCrcAccumulator() for _ in range(cd.total_shards)]
+        stages: dict = {}
+        with _span("ec.encode.shards") as shards:
+            outputs = [open(base_file_name + to_ext(i), "wb")
+                       for i in range(cd.total_shards)]
+            try:
+                with open(base_file_name + ".dat", "rb") as dat:
+                    chunks = _chunk_reader(dat, dat_size, large_block_size,
+                                           small_block_size, chunk_size,
+                                           stages)
+                    crc_map = _pipelined_encode(chunks, coder, outputs,
+                                                accs=accs, stages=stages)
+            finally:
+                for f in outputs:
+                    f.close()
+            shards.set(**stage_attrs(stages))
+        with _span("ec.encode.sidecars"), ec_stage("encode_index"):
+            # The codec id travels in the .vif like the needle version.
+            update_volume_info(base_file_name, codec=cd.name)
+            with ecc_lock(base_file_name):
+                ecc = ShardChecksums(base_file_name)
+                for sid in range(cd.total_shards):
+                    ecc.set_shard(sid, crc_map[sid] if crc_map is not None
+                                  else accs[sid].finalize())
+                ecc.save()
 
 
 def _chunk_reader(dat, dat_size: int, large: int, small: int,
-                  chunk_size: int):
-    """Yield (DATA_SHARDS, n) uint8 stripe chunks in shard-file order."""
+                  chunk_size: int, stages: dict | None = None):
+    """Yield (DATA_SHARDS, n) uint8 stripe chunks in shard-file order,
+    each chunk's reads timed as the stage `encode_read`."""
     fd = dat.fileno()
     remaining = dat_size
     processed = 0
@@ -132,12 +166,13 @@ def _chunk_reader(dat, dat_size: int, large: int, small: int,
         raise ValueError(f"chunk {chunk} must divide block size {large}")
     while remaining > large * DATA_SHARDS:
         for b in range(0, large, chunk):
-            data = np.zeros((DATA_SHARDS, chunk), dtype=np.uint8)
-            for i in range(DATA_SHARDS):
-                raw = os.pread(fd, chunk, processed + i * large + b)
-                if raw:
-                    data[i, :len(raw)] = np.frombuffer(raw,
-                                                       dtype=np.uint8)
+            with ec_stage("encode_read", DATA_SHARDS * chunk, stages):
+                data = np.zeros((DATA_SHARDS, chunk), dtype=np.uint8)
+                for i in range(DATA_SHARDS):
+                    raw = os.pread(fd, chunk, processed + i * large + b)
+                    if raw:
+                        data[i, :len(raw)] = np.frombuffer(raw,
+                                                           dtype=np.uint8)
             yield data
         remaining -= large * DATA_SHARDS
         processed += large * DATA_SHARDS
@@ -149,22 +184,23 @@ def _chunk_reader(dat, dat_size: int, large: int, small: int,
     while remaining > 0:
         row_bytes = small * DATA_SHARDS
         nrows = min(rows_per_call, -(-remaining // row_bytes))
-        data = np.zeros((DATA_SHARDS, nrows * small), dtype=np.uint8)
-        for r in range(nrows):
-            base = processed + r * row_bytes
-            col = r * small
-            for i in range(DATA_SHARDS):
-                raw = os.pread(fd, small, base + i * small)
-                if raw:
-                    data[i, col:col + len(raw)] = \
-                        np.frombuffer(raw, dtype=np.uint8)
+        with ec_stage("encode_read", DATA_SHARDS * nrows * small, stages):
+            data = np.zeros((DATA_SHARDS, nrows * small), dtype=np.uint8)
+            for r in range(nrows):
+                base = processed + r * row_bytes
+                col = r * small
+                for i in range(DATA_SHARDS):
+                    raw = os.pread(fd, small, base + i * small)
+                    if raw:
+                        data[i, col:col + len(raw)] = \
+                            np.frombuffer(raw, dtype=np.uint8)
         yield data
         remaining -= row_bytes * nrows
         processed += row_bytes * nrows
 
 
 def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
-                      depth: int = 2, accs=None):
+                      depth: int = 2, accs=None, stages=None):
     """Double-buffered encode pipeline:
 
       reader thread:  pread chunk k+1          (overlaps everything)
@@ -182,7 +218,14 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
     partials and this function returns the per-shard CRC lists
     (crc_fold.FusedCrcAccumulator folds them, with the CPU path for a
     ragged tail chunk).  With byte accumulators passed, None is
-    returned."""
+    returned.
+
+    The main thread's stages, timed per chunk into `stages` (see
+    stats.metrics.ec_stage) and never nested: `encode_read_wait` (the
+    wait for the next chunk), `encode_submit` (the coder call: the
+    upload and the launch), `encode_write` (the shard writes with their
+    `tobytes`) and `encode_fetch` (the parity, and the CRC partials,
+    brought to the host)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     cancelled = threading.Event()
     error: list[BaseException] = []
@@ -230,16 +273,24 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
         faccs = [FusedCrcAccumulator(coder.block_n)
                  for _ in range(data_shards + parity_shards)]
 
-    def flush_one() -> None:
-        if not fused:
-            parity = host_array(inflight.popleft())
+    def write_parity(parity, byte_accs) -> None:
+        with ec_stage("encode_write", parity.nbytes, stages):
             for p in range(parity_shards):
                 _shard_write(outputs[data_shards + p], data_shards + p,
-                             parity[p].tobytes(), accs)
+                             parity[p].tobytes(), byte_accs)
+
+    def flush_one() -> None:
+        if not fused:
+            handle = inflight.popleft()
+            with ec_stage("encode_fetch", parity_shards * handle.shape[1],
+                          stages):
+                parity = host_array(handle)
+            write_parity(parity, accs)
             return
         handle, crc_handle, width, data_tail = inflight.popleft()
-        parity = host_array(handle)
-        crc_np = host_array(crc_handle).view(np.uint32)
+        with ec_stage("encode_fetch", parity_shards * width, stages):
+            parity = host_array(handle)
+            crc_np = host_array(crc_handle).view(np.uint32)
         full = width // block * block
         for i in range(data_shards):
             faccs[i].feed_tiles(crc_np[i], full)
@@ -250,28 +301,32 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
             faccs[sid].feed_tiles(crc_np[sid], full)
             if width > full:
                 faccs[sid].feed_bytes(parity[p, full:width].tobytes())
-            _shard_write(outputs[sid], sid, parity[p].tobytes(), None)
+        write_parity(parity, None)
 
     try:
         while True:
-            data = q.get()
+            with ec_stage("encode_read_wait", 0, stages):
+                data = q.get()
             if data is None:
                 break
             # Launch first: the kernel runs while the data shards are
             # written and the next chunk is read.
+            width = data.shape[1]
             if fused:
-                handle, crc_handle = coder.encode_with_crc(data)
-                width = data.shape[1]
+                with ec_stage("encode_submit", data.nbytes, stages):
+                    handle, crc_handle = coder.encode_with_crc(data)
                 full = width // block * block
                 # Ragged tail (non-block-multiple chunk): keep the tail
                 # bytes for the CPU fold in flush_one.
                 tail = data[:, full:].copy() if width > full else None
                 inflight.append((handle, crc_handle, width, tail))
             else:
-                inflight.append(coder.encode(data))
-            for i in range(data_shards):
-                _shard_write(outputs[i], i, data[i].tobytes(),
-                             None if fused else accs)
+                with ec_stage("encode_submit", data.nbytes, stages):
+                    inflight.append(coder.encode(data))
+            with ec_stage("encode_write", data.nbytes, stages):
+                for i in range(data_shards):
+                    _shard_write(outputs[i], i, data[i].tobytes(),
+                                 None if fused else accs)
             if len(inflight) >= depth:
                 flush_one()
         while inflight:

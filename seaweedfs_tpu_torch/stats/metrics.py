@@ -10,9 +10,11 @@ the image, so the exposition format is emitted directly.
 from __future__ import annotations
 
 import bisect
+import sys
 import threading
 import time
 import urllib.request
+from contextlib import contextmanager
 from typing import Callable
 
 DEFAULT_BUCKETS = (0.0001, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
@@ -494,6 +496,37 @@ def observe_batch_stage(stages: dict, stage: str, seconds: float,
     acc = stages.setdefault(stage, [0.0, 0])
     acc[0] += seconds
     acc[1] += nbytes
+
+
+@contextmanager
+def profiler_range(name: str):
+    """A `torch.profiler.record_function(name)` range around the block
+    while a profiler collects (the flag is process-wide, so from any
+    thread), else nothing: the range puts the block on a profiler
+    trace's clock, beside the card's records."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        yield
+        return
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextmanager
+def ec_stage(stage: str, nbytes: int = 0, stages: dict | None = None):
+    """Time the block into the EC stage histograms as `stage` (never a
+    name with `kernel` or `device` in it: those count as a request's
+    device time), added to the `stages` accumulator when one is given
+    (observe_batch_stage), and as the profiler range `ec.<stage>`.  A
+    block that raises is not observed."""
+    with profiler_range("ec." + stage):
+        t0 = time.perf_counter()
+        yield
+        seconds = time.perf_counter() - t0
+    if stages is None:
+        observe_ec_stage(stage, seconds, nbytes)
+    else:
+        observe_batch_stage(stages, stage, seconds, nbytes)
 
 
 def stage_attrs(stages: dict) -> dict:
