@@ -40,6 +40,9 @@ from ..trace import span as trace_span
 # Per-shard contiguous bytes handed to one coder call. Must divide
 # LARGE_BLOCK_SIZE and be a multiple of SMALL_BLOCK_SIZE.
 DEFAULT_CHUNK = 4 * 1024 * 1024
+# Coder calls in flight in write_ec_files' pipeline; its stripe ring
+# holds two buffers more (the one being filled, the one being handed on).
+PIPELINE_DEPTH = 2
 
 
 @contextmanager
@@ -66,14 +69,16 @@ def write_sorted_file_from_idx(base_file_name: str,
             out.write(db.to_sorted_bytes())
 
 
-def _shard_write(f, sid: int, buf: bytes, accs) -> None:
-    """One shard-file write: feed the integrity accumulator with the
-    TRUE bytes first, then write — possibly through the volume.corrupt
-    bit-rot injector — so the recorded `.ecc` checksums describe what
+def _shard_write(f, sid: int, buf, accs) -> None:
+    """One shard-file write of any buffer (bytes, or a row of a stripe
+    or parity array, written as it is): feed the integrity accumulator
+    with the TRUE bytes first, then write — possibly through the
+    volume.corrupt bit-rot injector, which corrupts a copy and never
+    the caller's buffer — so the recorded `.ecc` checksums describe what
     the encoder intended and any on-disk divergence is detectable."""
     if accs is not None:
         accs[sid].feed(buf)
-    if _fault.ARMED and buf:
+    if _fault.ARMED and len(buf):
         try:
             _fault.hit("volume.corrupt", shard=sid)
         except _fault.FaultInjected:
@@ -95,9 +100,10 @@ def write_ec_files(base_file_name: str, coder: ErasureCoder | None = None,
 
     Spanned as `ec.encode`, with the children `ec.encode.shards` (the
     pipeline; its stages' totals as attributes) and `ec.encode.sidecars`;
-    every chunk's stages go to the EC stage histograms (`encode_read`,
-    `encode_read_wait`, `encode_submit`, `encode_write`, `encode_fetch`;
-    the sidecars as `encode_index`)."""
+    every chunk's stages go to the EC stage histograms (`encode_ring_wait`,
+    `encode_read`, `encode_read_wait`, `encode_submit`, `encode_write`,
+    `encode_fetch`, `encode_write_drain`; the sidecars as
+    `encode_index`)."""
     with _span("ec.encode", root=True) as root:
         if coder is None:
             coder = new_coder(codec=codec, device=device)
@@ -127,6 +133,8 @@ def write_ec_files(base_file_name: str, coder: ErasureCoder | None = None,
         accs = None if fused \
             else [BlockCrcAccumulator() for _ in range(cd.total_shards)]
         stages: dict = {}
+        ring = _StripeRing(PIPELINE_DEPTH + 2, DATA_SHARDS * _widest(
+            large_block_size, small_block_size, chunk_size), stages)
         with _span("ec.encode.shards") as shards:
             outputs = [open(base_file_name + to_ext(i), "wb")
                        for i in range(cd.total_shards)]
@@ -134,9 +142,10 @@ def write_ec_files(base_file_name: str, coder: ErasureCoder | None = None,
                 with open(base_file_name + ".dat", "rb") as dat:
                     chunks = _chunk_reader(dat, dat_size, large_block_size,
                                            small_block_size, chunk_size,
-                                           stages)
+                                           stages, ring.take)
                     crc_map = _pipelined_encode(chunks, coder, outputs,
-                                                accs=accs, stages=stages)
+                                                ring, accs=accs,
+                                                stages=stages)
             finally:
                 for f in outputs:
                     f.close()
@@ -152,11 +161,9 @@ def write_ec_files(base_file_name: str, coder: ErasureCoder | None = None,
                 ecc.save()
 
 
-def _chunk_reader(dat, dat_size: int, large: int, small: int,
-                  chunk_size: int, stages: dict | None = None):
-    """Yield (DATA_SHARDS, n) uint8 stripe chunks in shard-file order,
-    each chunk's reads timed as the stage `encode_read`."""
-    fd = dat.fileno()
+def _stripes(dat_size: int, large: int, small: int, chunk_size: int):
+    """Each stripe chunk's width and its reads, in shard-file order:
+    (data shard, column, bytes, `.dat` offset) per read."""
     remaining = dat_size
     processed = 0
     # Large-block rows while more than one full large row remains
@@ -166,14 +173,8 @@ def _chunk_reader(dat, dat_size: int, large: int, small: int,
         raise ValueError(f"chunk {chunk} must divide block size {large}")
     while remaining > large * DATA_SHARDS:
         for b in range(0, large, chunk):
-            with ec_stage("encode_read", DATA_SHARDS * chunk, stages):
-                data = np.zeros((DATA_SHARDS, chunk), dtype=np.uint8)
-                for i in range(DATA_SHARDS):
-                    raw = os.pread(fd, chunk, processed + i * large + b)
-                    if raw:
-                        data[i, :len(raw)] = np.frombuffer(raw,
-                                                           dtype=np.uint8)
-            yield data
+            yield chunk, [(i, 0, chunk, processed + i * large + b)
+                          for i in range(DATA_SHARDS)]
         remaining -= large * DATA_SHARDS
         processed += large * DATA_SHARDS
     # Small-block rows, many per coder call: rows are column-independent,
@@ -181,54 +182,153 @@ def _chunk_reader(dat, dat_size: int, large: int, small: int,
     # bytes, K fewer launches; each shard's blocks from consecutive rows
     # are consecutive in its shard file.
     rows_per_call = max(1, chunk_size // small)
+    row_bytes = small * DATA_SHARDS
     while remaining > 0:
-        row_bytes = small * DATA_SHARDS
         nrows = min(rows_per_call, -(-remaining // row_bytes))
-        with ec_stage("encode_read", DATA_SHARDS * nrows * small, stages):
-            data = np.zeros((DATA_SHARDS, nrows * small), dtype=np.uint8)
-            for r in range(nrows):
-                base = processed + r * row_bytes
-                col = r * small
-                for i in range(DATA_SHARDS):
-                    raw = os.pread(fd, small, base + i * small)
-                    if raw:
-                        data[i, col:col + len(raw)] = \
-                            np.frombuffer(raw, dtype=np.uint8)
-        yield data
+        yield nrows * small, [(i, r * small, small,
+                               processed + r * row_bytes + i * small)
+                              for r in range(nrows)
+                              for i in range(DATA_SHARDS)]
         remaining -= row_bytes * nrows
         processed += row_bytes * nrows
 
 
-def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
-                      depth: int = 2, accs=None, stages=None):
-    """Double-buffered encode pipeline:
+def _widest(large: int, small: int, chunk_size: int) -> int:
+    """The widest chunk `_stripes` can yield."""
+    return max(min(chunk_size, large), max(1, chunk_size // small) * small)
 
-      reader thread:  pread chunk k+1          (overlaps everything)
-      main thread:    launch encode(k)         (async on the card)
-                      write data shards of k   (independent of parity)
-                      bring over + write parity of k-depth+1
+
+def _read_into(fd: int, row, offset: int) -> None:
+    """Fill `row` (a contiguous slice of a stripe buffer) from the
+    `.dat` at `offset`, in place; zero what lies past the file's end."""
+    done, n = 0, len(row)
+    while done < n:
+        got = os.preadv(fd, [row[done:]], offset + done)
+        if got <= 0:
+            break
+        done += got
+    if done < n:
+        row[done:] = 0
+
+
+def _chunk_reader(dat, dat_size: int, large: int, small: int,
+                  chunk_size: int, stages: dict | None = None, take=None):
+    """Yield (DATA_SHARDS, n) uint8 stripe chunks in shard-file order,
+    each chunk's reads timed as the stage `encode_read`.  Each chunk is
+    a fresh array the caller may keep; with `take`, a (DATA_SHARDS, n)
+    view of the front of the flat buffer `take()` hands out, filled in
+    place (a `_StripeRing`'s)."""
+    fd = dat.fileno()
+    for width, reads in _stripes(dat_size, large, small, chunk_size):
+        flat = np.empty(DATA_SHARDS * width, dtype=np.uint8) \
+            if take is None else take()
+        data = flat[:DATA_SHARDS * width].reshape(DATA_SHARDS, width)
+        with ec_stage("encode_read", data.nbytes, stages):
+            for i, col, n, offset in reads:
+                _read_into(fd, data[i, col:col + n], offset)
+        yield data
+
+
+class _StripeRing:
+    """The host stripe buffers of one write_ec_files call: at most
+    `count` flat uint8 buffers of `nbytes`, each made when first needed.
+    The read-ahead takes a free one (the wait timed as the stage
+    `encode_ring_wait`) and fills it in place; the coder uploads from it
+    in place; the shard writer writes its rows in place, then gives it
+    back.  A slow writer so stalls the read-ahead, and the read-ahead the
+    main thread: the ring alone bounds the memory."""
+
+    def __init__(self, count: int, nbytes: int, stages: dict):
+        self.made = 0
+        self._count = count
+        self._nbytes = nbytes
+        self._stages = stages
+        self._free: "queue.SimpleQueue" = queue.SimpleQueue()
+        # Buffers taken and not yet given back, oldest first: the writer
+        # writes chunks in the order the read-ahead filled them.
+        self._taken: "collections.deque" = collections.deque()
+        self._closed = threading.Event()
+
+    def take(self) -> np.ndarray:
+        with ec_stage("encode_ring_wait", 0, self._stages):
+            buf = self._wait()
+        self._taken.append(buf)
+        return buf
+
+    def _wait(self) -> np.ndarray:
+        try:
+            return self._free.get_nowait()
+        except queue.Empty:
+            pass
+        if self.made < self._count:
+            self.made += 1
+            return np.empty(self._nbytes, dtype=np.uint8)
+        while not self._closed.is_set():
+            try:
+                return self._free.get(timeout=0.2)
+            except queue.Empty:
+                continue
+        raise RuntimeError("ec encode cancelled while the read-ahead "
+                           "waited for a stripe buffer")
+
+    def give(self) -> None:
+        """Give back the oldest buffer taken: its chunk's upload has
+        returned, its tail is copied and its data rows are written."""
+        self._free.put(self._taken.popleft())
+
+    def close(self) -> None:
+        self._closed.set()
+
+
+def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
+                      ring: _StripeRing, depth: int = PIPELINE_DEPTH,
+                      accs=None, stages=None):
+    """Pipelined encode over three threads:
+
+      read-ahead:  fill chunk k+1          (overlaps everything)
+      main:        launch encode(k)        (async on the card)
+                   hand chunk k's data rows to the writer
+                   bring over parity of k-depth+1, hand it to the writer
+      writer:      write every shard file, in chunk order per file
 
     The CUDA coder returns device tensors without a synchronize, so up
     to `depth` encodes are in flight while the next chunk is read.  Only
-    the main thread touches the device; the reader thread only reads
-    the file.
+    the main thread touches the device; the read-ahead only reads the
+    file, and the writer owns every shard-file write.  Nothing is copied
+    to be written: the writer writes the chunk's rows and the parity's
+    as they are.  The chunks are `ring`'s buffers, and each goes back to
+    it once the writer has written its data rows (the upload returned
+    and the ragged tail was copied before the hand-off).
 
     When ``accs is None`` the coder must support fused CRC
     (`encode_with_crc`): its second output is every shard's `.ecc` tile
     partials and this function returns the per-shard CRC lists
     (crc_fold.FusedCrcAccumulator folds them, with the CPU path for a
-    ragged tail chunk).  With byte accumulators passed, None is
-    returned.
+    ragged tail chunk).  With byte accumulators passed, the writer feeds
+    them and None is returned.
 
-    The main thread's stages, timed per chunk into `stages` (see
-    stats.metrics.ec_stage) and never nested: `encode_read_wait` (the
-    wait for the next chunk), `encode_submit` (the coder call: the
-    upload and the launch), `encode_write` (the shard writes with their
-    `tobytes`) and `encode_fetch` (the parity, and the CRC partials,
-    brought to the host)."""
+    A failure on any thread cancels the others and is raised here;
+    nothing is written after it, and every thread has ended on return.
+
+    The stages, timed into `stages` (see stats.metrics.ec_stage): on the
+    main thread, never nested, `encode_read_wait` (the wait for the
+    next chunk), `encode_submit` (the coder call: the upload and the
+    launch), `encode_fetch` (the parity, and the CRC partials, brought
+    to the host) and `encode_write_drain` (the wait for the writer at
+    the end); on the writer, `encode_write` (each hand-off's writes and,
+    unfused, the CPU CRC feed); on the read-ahead, `encode_ring_wait`
+    and `encode_read` (see `_StripeRing`, `_chunk_reader`)."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
+    # Unbounded, but bounded by the pipeline: every data hand-off holds
+    # a chunk, and at most one parity hand-off follows each.
+    writes: "queue.SimpleQueue" = queue.SimpleQueue()
     cancelled = threading.Event()
     error: list[BaseException] = []
+
+    def fail(e: BaseException) -> None:
+        error.append(e)
+        cancelled.set()
+        ring.close()
 
     def read_loop() -> None:
         try:
@@ -245,11 +345,9 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
                     except queue.Full:
                         continue
                 if not delivered:
-                    error.append(RuntimeError(
-                        "ec encode cancelled with a chunk undelivered"))
                     return
         except BaseException as e:  # noqa: BLE001 — re-raised below
-            error.append(e)
+            fail(e)
         finally:
             # The end-of-stream sentinel must actually arrive; same
             # bounded-put-with-cancel as the data path.
@@ -259,9 +357,39 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
                     break
                 except queue.Full:
                     continue
-    t = threading.Thread(target=read_loop, daemon=True,
-                         name="ec-read-ahead")
-    t.start()
+
+    def write_loop() -> None:
+        try:
+            while True:
+                item = writes.get()
+                if item is None or cancelled.is_set():
+                    return
+                first, rows, written = item
+                with ec_stage("encode_write", rows.nbytes, stages):
+                    for j in range(len(rows)):
+                        if cancelled.is_set():
+                            return
+                        _shard_write(outputs[first + j], first + j,
+                                     rows[j], accs)
+                if written is not None:
+                    written()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            fail(e)
+
+    def next_chunk():
+        while True:
+            try:
+                return q.get(timeout=0.2)
+            except queue.Empty:
+                if error:
+                    raise error[0]
+
+    reader = threading.Thread(target=read_loop, daemon=True,
+                              name="ec-read-ahead")
+    writer = threading.Thread(target=write_loop, daemon=True,
+                              name="ec-shard-writer")
+    reader.start()
+    writer.start()
     inflight: "collections.deque" = collections.deque()
 
     data_shards = coder.data_shards
@@ -273,19 +401,13 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
         faccs = [FusedCrcAccumulator(coder.block_n)
                  for _ in range(data_shards + parity_shards)]
 
-    def write_parity(parity, byte_accs) -> None:
-        with ec_stage("encode_write", parity.nbytes, stages):
-            for p in range(parity_shards):
-                _shard_write(outputs[data_shards + p], data_shards + p,
-                             parity[p].tobytes(), byte_accs)
-
     def flush_one() -> None:
         if not fused:
             handle = inflight.popleft()
             with ec_stage("encode_fetch", parity_shards * handle.shape[1],
                           stages):
                 parity = host_array(handle)
-            write_parity(parity, accs)
+            writes.put((data_shards, parity, None))
             return
         handle, crc_handle, width, data_tail = inflight.popleft()
         with ec_stage("encode_fetch", parity_shards * width, stages):
@@ -295,18 +417,20 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
         for i in range(data_shards):
             faccs[i].feed_tiles(crc_np[i], full)
             if width > full:
-                faccs[i].feed_bytes(data_tail[i].tobytes())
+                faccs[i].feed_bytes(data_tail[i])
         for p in range(parity_shards):
             sid = data_shards + p
             faccs[sid].feed_tiles(crc_np[sid], full)
             if width > full:
-                faccs[sid].feed_bytes(parity[p, full:width].tobytes())
-        write_parity(parity, None)
+                faccs[sid].feed_bytes(parity[p, full:width])
+        writes.put((data_shards, parity, None))
 
     try:
         while True:
+            if error:
+                raise error[0]
             with ec_stage("encode_read_wait", 0, stages):
-                data = q.get()
+                data = next_chunk()
             if data is None:
                 break
             # Launch first: the kernel runs while the data shards are
@@ -323,22 +447,25 @@ def _pipelined_encode(chunks, coder: ErasureCoder, outputs,
             else:
                 with ec_stage("encode_submit", data.nbytes, stages):
                     inflight.append(coder.encode(data))
-            with ec_stage("encode_write", data.nbytes, stages):
-                for i in range(data_shards):
-                    _shard_write(outputs[i], i, data[i].tobytes(),
-                                 None if fused else accs)
+            writes.put((0, data, ring.give))
             if len(inflight) >= depth:
                 flush_one()
         while inflight:
             flush_one()
+        writes.put(None)
+        with ec_stage("encode_write_drain", 0, stages):
+            writer.join()
     finally:
         cancelled.set()
+        ring.close()
+        writes.put(None)
         while True:  # unblock a reader stuck on a full queue
             try:
                 q.get_nowait()
             except queue.Empty:
                 break
-        t.join()
+        reader.join()
+        writer.join()
     if error:
         raise error[0]
     if fused:

@@ -5,10 +5,12 @@ on a small volume: at the shrunken block sizes (large and small rows,
 the CPU byte accumulators) and at the default sizes with fused CRC
 (small rows, the kernel's CRC partials).  Each stage's bytes are exact
 (`encode_read` = `encode_submit` = 10 shards, `encode_write` = 14,
-`encode_fetch` = 4), the main thread's stages fit in the call's wall
-time, the spans of one encode share a trace id, the stages' profiler
-ranges carry their thread and the spans' clock, and without a profiler
-no range is entered.
+`encode_fetch` = 4, the waits `encode_read_wait`, `encode_ring_wait`
+and `encode_write_drain` 0), the main thread's stages fit in the call's
+wall time and so does the shard writer's `encode_write`, the spans of
+one encode share a trace id, the stages' profiler ranges carry their
+thread (read-ahead, writer and main thread apart) and the spans' clock,
+and without a profiler no range is entered.
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ torch.set_num_threads(1)
 
 MIB = 1024 * 1024
 PIPELINE = ("encode_read", "encode_read_wait", "encode_submit",
-            "encode_write", "encode_fetch")
+            "encode_write", "encode_fetch", "encode_ring_wait",
+            "encode_write_drain")
 STAGES = PIPELINE + ("encode_index",)
-MAIN_THREAD = ("encode_read_wait", "encode_submit", "encode_write",
-               "encode_fetch", "encode_index")
+MAIN_THREAD = ("encode_read_wait", "encode_submit", "encode_fetch",
+               "encode_write_drain", "encode_index")
 # (large block, small block, chunk, needle bytes, fused CRC): shrunken
 # blocks give two large rows and a tail of small rows; the default ones
 # small rows only, with the CRC fused into the encode.
@@ -103,9 +106,12 @@ def test_stage_bytes_are_exact_and_fit_the_call(volume, monkeypatch):
                       "encode_submit": 10 * shard,
                       "encode_write": 14 * shard,
                       "encode_fetch": 4 * shard,
+                      "encode_ring_wait": 0, "encode_write_drain": 0,
                       "encode_index": os.path.getsize(base + ".idx")}
     assert all(seconds[s] > 0 for s in STAGES)
     assert sum(seconds[s] for s in MAIN_THREAD) <= wall
+    # The shard writes run on their own thread, inside the call.
+    assert seconds["encode_write"] <= wall
 
 
 def test_spans_of_one_encode_share_a_trace_id(volume, monkeypatch):
@@ -135,7 +141,8 @@ def test_spans_of_one_encode_share_a_trace_id(volume, monkeypatch):
     assert {k: v for k, v in attrs.items() if k.endswith("_bytes")} == {
         "encode_read_bytes": 10 * shard, "encode_read_wait_bytes": 0,
         "encode_submit_bytes": 10 * shard, "encode_write_bytes": 14 * shard,
-        "encode_fetch_bytes": 4 * shard}
+        "encode_fetch_bytes": 4 * shard, "encode_ring_wait_bytes": 0,
+        "encode_write_drain_bytes": 0}
     assert all(attrs[f"{s}_seconds"] > 0 for s in PIPELINE)
 
 
@@ -172,9 +179,14 @@ def test_ranges_carry_their_thread_and_the_spans_clock(volume, monkeypatch):
     assert {"ec." + s for s in STAGES} <= names
     assert {"ec.encode", "ec.encode.ecx", "ec.encode.shards",
             "ec.encode.sidecars"} <= names
-    reader = {e["tid"] for e in ranges if e["name"] == "ec.encode_read"}
-    writer = {e["tid"] for e in ranges if e["name"] == "ec.encode_write"}
+    tids = {s: {e["tid"] for e in ranges if e["name"] == "ec." + s}
+            for s in STAGES}
+    reader, writer = tids["encode_read"], tids["encode_write"]
+    main = tids["encode_submit"]
     assert reader and writer and not reader & writer
+    assert tids["encode_ring_wait"] == reader
+    assert not writer & main and not reader & main
+    assert tids["encode_write_drain"] == main
     # The span's start (time.time()) and its range's start, on the
     # trace's clock, agree.
     (top,) = [e for e in ranges if e["name"] == "ec.encode"]

@@ -102,20 +102,26 @@ def test_locate_equals_reference_at_real_geometry(dat_mib):
 
 def _plan(encoder_mod, path: str, dat: int, monkeypatch) -> tuple:
     """Every read `_chunk_reader` makes and every chunk's shape, with
-    the reads recorded and answered empty, and the chunks' buffers
-    zero-strided views."""
+    the reads recorded and not made: the reference's `pread`s answered
+    empty into zero-strided views, the port's `preadv`s into its
+    untouched arrays answered as full up to the file's end."""
     reads: list = []
 
     def pread(fd, n, offset):
         reads.append((offset, n))
         return b""
 
+    def preadv(fd, buffers, offset):
+        (buf,) = buffers
+        reads.append((offset, len(buf)))
+        return len(buf) if offset < dat else 0
+
     fake_np = types.SimpleNamespace(
         zeros=lambda shape, dtype: np.broadcast_to(
             np.zeros(1, dtype), shape),
-        frombuffer=np.frombuffer, uint8=np.uint8)
+        empty=np.empty, frombuffer=np.frombuffer, uint8=np.uint8)
     monkeypatch.setattr(encoder_mod, "os", types.SimpleNamespace(
-        pread=pread))
+        pread=pread, preadv=preadv))
     monkeypatch.setattr(encoder_mod, "np", fake_np)
     try:
         with open(path, "rb") as f:
